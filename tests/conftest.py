@@ -27,3 +27,9 @@ settings.register_profile(
                            HealthCheck.data_too_large],
 )
 settings.load_profile("repro")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card; skipped (by its fixture) without one")

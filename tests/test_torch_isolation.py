@@ -1,0 +1,102 @@
+"""The port stands alone: it runs its main path without importing jax or
+any module of the reference package, no source file of it (nor
+``chip_smoke.py``) imports either, and ``device=None`` never falls back
+to the CPU."""
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the CPU; PyTorch's intra-op threads would
+    oversubscribe it (the 256x256 dwell test goes from 1 s to minutes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+_PROBE = r"""
+import json, sys
+import numpy as np
+from repro_torch.algorithms import (MSParams, UTSParams, ms_spec,
+                                    naive_render, uts_sequential, uts_spec)
+from repro_torch.core import make_pool, run_irregular
+n = uts_sequential(UTSParams(max_depth=5), device="cpu")
+p = MSParams(width=32, height=32, max_dwell=32, initial_subdivision=2,
+             max_depth=2)
+with make_pool("elastic", max_concurrency=4, invoke_overhead=0.0,
+               invoke_rate_limit=None) as pool:
+    r = run_irregular(pool, uts_spec(UTSParams(max_depth=5), device="cpu"))
+    m = run_irregular(pool, ms_spec(p, device="cpu"))
+same = bool(np.array_equal(m.output["image"], naive_render(p, device="cpu")))
+print(json.dumps({
+    "uts": n, "uts_pool": r.output, "ms_equal": same,
+    "jax": sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")),
+    "repro": sorted(k for k in sys.modules
+                    if k == "repro" or k.startswith("repro.")),
+}))
+"""
+
+
+def test_main_path_runs_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["uts"] == 416 and res["uts_pool"] == 416
+    assert res["ms_equal"]
+    assert res["jax"] == []
+    assert res["repro"] == []
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)\b(?!_torch)|from\s+(jax|repro)\b(?!_torch)"
+    r"[\w.]*\s+import)", re.M)
+
+
+def _port_sources():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_static_scan_finds_no_jax_or_repro_import():
+    files = _port_sources()
+    assert len(files) > 10
+    bad = {str(f.relative_to(ROOT)): m.group(0).strip()
+           for f in files for m in [_FORBIDDEN.search(f.read_text())] if m}
+    assert bad == {}
+
+
+def test_static_scan_pattern_catches_imports():
+    for line in ("import jax", "import jax.numpy as jnp", "from jax import lax",
+                 "from repro.core import run_irregular", "import repro",
+                 "    from repro.kernels.dispatch import bucket"):
+        assert _FORBIDDEN.search(line), line
+    for line in ("from repro_torch.core import make_pool",
+                 "import repro_torch", "# import jax in a comment"):
+        assert not _FORBIDDEN.search(line), line
+
+
+def test_no_device_without_cuda_raises(monkeypatch):
+    from repro_torch.algorithms import MSParams, UTSParams, ms_spec, uts_spec
+    from repro_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device=None means the CUDA card"):
+        uts_spec(UTSParams())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ms_spec(MSParams())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -24,19 +24,47 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    images must equal Mariani-Silver applied to ``naive_render``'s dwell
    map on the card, pixel for pixel; then, at the paper's full size, the
    dwell map and the number of tasks Mariani-Silver over it dispatches;
-6. one JSON line with every kernel's launches on the main path, error,
+6. flash attention at fixed shapes (run right after phase 3): the kernel
+   against its plain version at gemma3-1b's attention shapes (G = 4 query
+   heads on one KV head, D = 256, bf16, batch 2, S = 4096 causal, S = 4096
+   window 512, S = 4000 ragged, and S = 4096 causal with float32 q and k
+   as a bf16 model feeds it) and one float32 soft-capped case, with
+   kernel, plain and ``scaled_dot_product_attention`` times and the bound;
+   every case is checked twice: as given, per element, within the bound
+   that rounding p and the output to bf16 allows (``flash_allowed``), and
+   cast to float32 through the kernel's float32 build within the
+   reference's 3e-5 + 1e-4 |value|, which holds the kernel's logic (the
+   masks, the tile loop, the online softmax: one template for every
+   dtype) tightly;
+7. the model path, gemma3-1b at full width with random weights from a
+   seed: ``prefill`` of prefill_32k's S = 32,768 (batch cut from 32 to 1),
+   whose 26 attention layers must each launch the flash kernel, then one
+   global and one local layer's own operands again through kernel and
+   plain version (both checks); 32 ``decode_step`` tokens on from that
+   cache padded to an arena of 32,768 + 32; ``prefill`` at S = 4096 with the kernel and with the
+   plain version forced, and prefill(4096) + one decode step against
+   prefill(4097), on the same weights; a warm prefill and four decode
+   steps under ``torch.profiler`` (device busy time, largest kernels, the
+   device's idle share); then ``serve`` (16 requests, 4 slots, max_seq
+   256) through the ElasticBatcher, which must answer all;
+8. one JSON line with every kernel's launches on each main path, error,
    times and bound, then the last line ``{"ok": true, "device": ...}``.
 
-Each of the five main-path runs (three UTS, two Mariani-Silver) is driven
-with the launch counts set to 0 just before it and read just after it,
-and fails unless its kernel launched; the depth 4..10 checks and every
-comparison launch fall outside those counts.  During the runs a seeded
-sample of the operands each kernel is given (a few per distinct padded
-shape) is kept, and afterwards each sample goes through the kernel and
-its plain version again, which must agree bit for bit: phase 3 checks one
-shape, this checks the main path's own.  The script imports nothing of
-the JAX reference package.  It needs CUDA: without a card it exits with
-code 2.
+Each of the eight main-path runs (three UTS, two Mariani-Silver, prefill,
+decode, serve) is driven with the launch counts set to 0 just before it
+and read just after it, and fails unless its kernel launched.  Decode and
+serve run no hand kernel (the decode product is plain PyTorch, as the
+reference leaves it to XLA, and the batcher's prefill only counts
+tokens); their flash launches are read and reported, 0.  The depth 4..10
+checks and every comparison launch fall outside those counts.  During the
+runs a seeded sample of the operands each kernel is given (a few per
+distinct padded shape and static arguments) is kept, and afterwards each
+sample goes through the kernel and its plain version again: bit for bit
+for the two integer kernels; for flash attention within a per-element
+bound as the model feeds it (bf16 v), and cast to float32 through the
+kernel's float32 build at the reference's 3e-5 / 1e-4.  Phases 3 and 6 check fixed shapes; this checks the main
+path's own.  The script imports nothing of the JAX reference package.  It
+needs CUDA: without a card it exits with code 2.
 """
 from __future__ import annotations
 
@@ -88,6 +116,8 @@ KERNEL_SOURCES = {
                  "src/repro/kernels/uts_hash/kernel.py:96"),
     "mandelbrot": ("src/repro_torch/kernels/csrc/mandelbrot.cu",
                    "src/repro/kernels/mandelbrot/kernel.py:74"),
+    "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:115"),
 }
 
 
@@ -275,18 +305,21 @@ class OperandTap:
         return out
 
 
-def run_path(name: str, kernel: str, fn) -> tuple:
+def run_path(name: str, kernel: str, fn, required: bool = True) -> tuple:
     """Drive one main path with the launch counts set to 0 just before it
-    and read just after; returns ``(result, seconds, launches)``."""
+    and read just after; returns ``(result, seconds, launches of kernel)``.
+    Fails if ``kernel`` did not launch, unless the path is not ``required``
+    to run it (decoding and serving run no hand kernel yet)."""
     import torch
     from repro_torch.kernels import launches, reset_launches
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.monotonic()
     out = fn()
+    torch.cuda.synchronize()
     wall = time.monotonic() - t0
     n = launches(kernel)
-    if n <= 0:
+    if required and n <= 0:
         raise AssertionError(f"{name}: {kernel} not launched on this path")
     return out, wall, n
 
@@ -543,6 +576,486 @@ def phase_ms_paper_size(dev) -> dict:
             "pixels_off_naive": sampled}
 
 
+# -- the model slice: gemma3-1b prefill, decode and serving ----------------------
+
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
+PEAK_BF16_S = 989e12
+#: the model path: gemma3-1b at full width; prefill_32k's sequence with the
+#: batch cut from 32 to 1, then DECODE_STEPS tokens on from its cache
+ARCH = "gemma3-1b"
+PREFILL_S = 32_768
+DECODE_STEPS = 32
+#: whole-model comparison (kernel against plain version) and fixed shapes
+MODEL_CMP_S = 4096
+FIXED_S, FIXED_B = 4096, 2
+#: serving: requests through the ElasticBatcher at full width
+SERVE = dict(n_requests=16, n_slots=4, max_seq=256)
+#: the whole-model check: 26 layers, each rounding its attention output to
+#: bf16 (2**-8 relative) at another place in the two versions; in quadrature
+#: about 2**-8 * sqrt(26) = 0.02 of the logits' scale, allowed three times
+MODEL_REL_TOL = 2**-4
+MODEL_MIN_COS = 0.999
+#: float32 kernel check: the tolerance of the reference package's tests
+F32_ATOL, F32_RTOL = 3e-5, 1e-4
+#: bf16's unit roundoff: rounding to bf16 moves a value by at most this
+#: share of its magnitude
+BF16_U = 2**-8
+
+
+def live_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """(query, key) pairs one head attends to under the masks."""
+    import numpy as np
+    i = np.arange(sq, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    hi = np.minimum(i, skv - 1) if causal else np.full_like(i, skv - 1)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def _peak(dtype) -> float:
+    import torch
+    return PEAK_BF16_S if dtype == torch.bfloat16 else PEAK_OPS_S
+
+
+def flash_bound(q2, k2, v2, causal: bool, window) -> tuple:
+    """Least card time for one flash call: the live pairs' products (2 * D
+    flops each for q.k^T at the rate of q's and k's type, 2 * D for p.v at
+    the rate of v's type, the two added), against q, k, v read and o
+    written once."""
+    bhg, sq, d = q2.shape
+    skv = k2.shape[1]
+    pair_flops = bhg * live_pairs(sq, skv, causal, window) * 2 * d
+    t_ops = (pair_flops / _peak(q2.dtype) + pair_flops / _peak(v2.dtype)) * 1e3
+    n_bytes = (2 * q2.numel() + k2.numel()) * q2.element_size() + \
+        v2.numel() * v2.element_size()
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", 2 * pair_flops)
+
+
+def sdpa(q2, k2, v2, causal: bool, window):
+    """``F.scaled_dot_product_attention`` on the kernel's operands: the
+    yardstick ``library_ms``, timed only, never called by the port.  It
+    takes one dtype, so operands of two are passed in the wider."""
+    import torch
+    import torch.nn.functional as F
+    bhg, sq, d = q2.shape
+    bhkv, skv, _ = k2.shape
+    q4 = q2.view(bhkv, bhg // bhkv, sq, d)
+    k4, v4 = k2.view(bhkv, 1, skv, d), v2.view(bhkv, 1, skv, d)
+    if window is None:
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                              scale=1.0, enable_gqa=True)
+    qp = torch.arange(sq, device=q2.device)[:, None]
+    kp = torch.arange(skv, device=q2.device)[None, :]
+    band = (qp - kp) < window
+    if causal:
+        band &= qp >= kp
+    return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=band,
+                                          scale=1.0, enable_gqa=True)
+
+
+def trap_rows(sq: int, window, tiles: tuple) -> "list":
+    """Rows whose first live key tile in the kernel is wholly masked: the
+    Pallas kernel's -1e30 arithmetic gives them p = 1 for that tile until a
+    later tile's alpha = 0 wipes it out."""
+    bq, bk = tiles
+    if window is None:
+        return []
+    rows = []
+    for r in range(sq):
+        q_lo = r // bq * bq
+        first_tile = max(0, q_lo - window + 1) // bk * bk
+        if r - window + 1 > first_tile + bk - 1:
+            rows.append(r)
+    return rows
+
+
+def flash_allowed(want, weight=None):
+    """Per-element tolerance of the kernel against its plain version.
+
+    float32 throughout (``weight`` None): the reference's 3e-5 + 1e-4
+    |want|.  Where p is rounded to bf16 (v in bf16), each version rounds
+    every p_j once, at another scale (the kernel before normalising, the
+    plain version after), by at most BF16_U of it, and rounds its output
+    once: so |got - want| <= BF16_U * (2 * A + |want| + |got|), with
+    A = sum_j p_j |v_j| (``weight``, the plain version on |v| in float32).
+    Solved for the error, plus the float32 term for the scores' sums."""
+    w = want.float().abs()
+    if weight is None:
+        return F32_ATOL + F32_RTOL * w
+    return 2 * BF16_U * (weight + w) / (1 - BF16_U) + F32_ATOL
+
+
+def _agreement(q2, k2, v2, kw: dict) -> dict:
+    """Kernel and plain version on these operands, held to
+    ``flash_allowed``; the error, the share of the tolerance used and the
+    typical sizes beside it."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (flash_attention_cuda,
+                                                         kernel_tiles)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    got = flash_attention_cuda(q2, k2, v2, **kw)
+    want = flash_attention_ref(q2, k2, v2, **kw)
+    weight = None if v2.dtype == torch.float32 else flash_attention_ref(
+        q2.float(), k2.float(), v2.float().abs(), **kw)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    allowed = flash_allowed(want, weight)
+    trap = trap_rows(q2.shape[1], kw["window"], kernel_tiles())
+    # medians over a strided sample of at most 2**24 values
+    step = max(1, want.numel() // (1 << 24))
+    rec = {"dtypes": f"{str(q2.dtype)[6:]} q/k, {str(v2.dtype)[6:]} v",
+           "max_abs_err": float(diff.max()),
+           "tolerance_used": float((diff / allowed).max()),
+           "bad": int((diff > allowed).sum()),
+           "median_abs_out": float(want.float().abs().flatten()[::step]
+                                   .median()),
+           "median_allowed": float(allowed.flatten()[::step].median()),
+           "trap_rows": len(trap),
+           "trap_rows_max_abs_err": float(diff[:, trap].max()) if trap
+           else None}
+    del got, want, weight, diff, allowed
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_flash(q2, k2, v2, *, causal: bool, window, softcap=None,
+                label: str, time_it: bool = True, reps: int = 10) -> dict:
+    """The kernel against its plain version on these operands, with the
+    tolerance of their dtypes (``flash_allowed``), and again with the
+    operands cast to float32 through the kernel's float32 build at the
+    reference's 3e-5 / 1e-4, which holds its logic tightly; times kernel,
+    plain version and SDPA on the operands as given."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    as_given = _agreement(q2, k2, v2, kw)
+    f32 = (as_given if torch.float32 == q2.dtype == v2.dtype else
+           _agreement(q2.float(), k2.float(), v2.float(), kw))
+    rec = {"label": label, "shape": f"q {list(q2.shape)}, k/v "
+           f"{list(k2.shape)}, {as_given['dtypes']}",
+           "causal": causal, "window": window, "softcap": softcap,
+           "max_abs_err": as_given["max_abs_err"], "as_given": as_given,
+           "float32": f32}
+    for what, r in (("as given", as_given), ("in float32", f32)):
+        log(f"[flash] {label}, {what} ({r['dtypes']}): max |err| "
+            f"{r['max_abs_err']:.3e}, {r['tolerance_used']:.3f} of the "
+            f"tolerance at worst; median |out| {r['median_abs_out']:.3e}, "
+            f"median allowed {r['median_allowed']:.3e}; {r['trap_rows']} "
+            f"rows with a wholly masked first tile (max |err| "
+            f"{r['trap_rows_max_abs_err']})")
+        if r["bad"]:
+            raise AssertionError(f"flash_attention {label} {what}: kernel "
+                                 f"differs from plain version beyond "
+                                 f"tolerance on {r['bad']} values: {rec}")
+    b_ms, b_by, flops = flash_bound(q2, k2, v2, causal, window)
+    rec.update(bound_ms=b_ms, bound_by=b_by, flops=flops)
+    if time_it:
+        rec["ms"] = cuda_time_ms(lambda: flash_attention_cuda(q2, k2, v2, **kw),
+                                 reps=reps)
+        rec["plain_ms"] = cuda_time_ms(
+            lambda: flash_attention_ref(q2, k2, v2, **kw), reps=reps)
+        if softcap is None:
+            wide = q2.dtype if q2.dtype == v2.dtype else torch.float32
+            lq, lk, lv = (t.to(wide) for t in (q2, k2, v2))
+            rec["library_ms"] = cuda_time_ms(
+                lambda: sdpa(lq, lk, lv, causal, window), reps=reps)
+            rec["library_dtype"] = str(wide)[6:]
+            del lq, lk, lv
+        else:
+            rec["library_ms"] = None
+    log(f"[flash] {label}: {rec['shape']} causal={causal} window={window} "
+        f"softcap={softcap}: kernel {rec.get('ms', float('nan')):.4f} ms, "
+        f"plain {rec.get('plain_ms', float('nan')):.4f} ms, SDPA "
+        f"{rec.get('library_ms')} ms ({rec.get('library_dtype')}), bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_flash_fixed(dev) -> list:
+    """The kernel at gemma3-1b's attention shapes (G = 4 on one KV head,
+    D = 256, bf16, S = 4096, batch 2): causal, window 512, a ragged S, and
+    causal with the dtypes a bf16 model feeds it (float32 q and k, bf16 v);
+    and one small float32 case with a soft-cap."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(5)
+
+    def operands(bhkv, g, s, d, dtype):
+        q = rng.standard_normal((bhkv * g, s, d), np.float32) * d ** -0.5
+        k = rng.standard_normal((bhkv, s, d), np.float32)
+        v = rng.standard_normal((bhkv, s, d), np.float32)
+        return [torch.from_numpy(a).to(dev, dtype) for a in (q, k, v)]
+
+    out = []
+    for s, window, label in ((FIXED_S, None, "fixed causal"),
+                             (FIXED_S, 512, "fixed window 512"),
+                             (4000, None, "fixed ragged S"),
+                             (FIXED_S, None, "fixed causal, float32 q/k")):
+        q2, k2, v2 = operands(FIXED_B, 4, s, 256, torch.bfloat16)
+        if "float32" in label:
+            q2, k2 = q2.float(), k2.float()
+        out.append(check_flash(q2, k2, v2, causal=True, window=window,
+                               label=label))
+    q2, k2, v2 = operands(2, 4, 1000, 64, torch.float32)
+    out.append(check_flash(q2 * 8, k2, v2, causal=True, window=300,
+                           softcap=5.0, label="float32 softcap",
+                           time_it=False))
+    return out
+
+
+def device_busy(fn, label: str) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA activities)
+    and sum the device time of every kernel: the device's busy time in
+    that window, its idle share of the window's wall time, and the
+    largest kernels by self device time.  The profiler slows the host
+    side, so where the host sets the pace the idle share is an upper
+    bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    # the device's own rows (kernels, copies, memsets), not the host ops
+    # that launched them
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    rec = {"busy_ms": busy_ms, "profiled_wall_ms": wall * 1e3,
+           "idle_share": 1 - busy_ms / (wall * 1e3),
+           "device_calls": sum(e.count for e in events),
+           "top": [{"kernel": e.key[:80], "ms": e.self_device_time_total
+                    / 1e3, "calls": e.count} for e in top]}
+    log(f"[profile] {label}: device busy {busy_ms:.3f} ms in "
+        f"{rec['device_calls']} kernels, wall under the profiler "
+        f"{wall * 1e3:.3f} ms, idle share {rec['idle_share']:.3f}; "
+        f"largest: " + "; ".join(
+            f"{t['kernel'][:40]} {t['ms']:.3f} ms x{t['calls']}"
+            for t in rec["top"][:4]))
+    if busy_ms <= 0:
+        raise AssertionError(f"{label}: the profiler saw no device time")
+    return rec
+
+
+def phase_model(dev) -> dict:
+    """gemma3-1b at full width on the card: prefill of S = 32,768 through
+    the flash kernel (launches counted, one global and one local layer's
+    operands re-checked against the plain version), the whole model with
+    kernel and plain version at S = 4096, decode on from the 32k cache, and
+    the elastic serving loop."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = get_config(ARCH)
+    if SHAPES["prefill_32k"].seq_len != PREFILL_S:
+        raise AssertionError("prefill_32k's sequence is not PREFILL_S")
+    rng = np.random.default_rng(7)
+    with torch.inference_mode():
+        t0 = time.monotonic()
+        params = init_params(cfg, 0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        n_params = sum(t.numel() for _, t in _leaves(params))
+        log(f"[model] {cfg.name}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {n_params} parameters (bf16), random weights "
+            f"from seed 0 in {init_s:.3f} s")
+        toks = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (1, PREFILL_S + DECODE_STEPS))
+        ).to(dev)
+
+        # -- the path: prefill ------------------------------------------
+        torch.cuda.reset_peak_memory_stats()
+        with OperandTap("flash_attention_fwd", k=1) as tap:
+            (logits, cache), pre_s, n_pre = run_path(
+                "prefill", "flash_attention_fwd",
+                lambda: prefill(cfg, params, {"tokens": toks[:, :PREFILL_S]}))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if n_pre != cfg.n_layers:
+            raise AssertionError(f"prefill: {n_pre} flash_attention_fwd "
+                                 f"launches, want {cfg.n_layers}")
+        if logits.shape != (1, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                                 f"finite")
+        log(f"[model] prefill S={PREFILL_S} batch 1: {pre_s:.3f} s, "
+            f"{PREFILL_S / pre_s:.1f} tokens/s, {n_pre} flash_attention_fwd "
+            f"launches, peak memory {peak_gb:.2f} GB")
+
+        # -- the kernel on the main path's own operands -----------------
+        main_path = {}
+        for (shapes, static), kept in sorted(tap.samples.items(),
+                                             key=lambda kv: str(kv[0])):
+            st = dict(static)
+            kind = "global" if st["window"] is None else "local"
+            q2, k2, v2 = kept[0]
+            main_path[kind] = check_flash(
+                q2, k2, v2, causal=st["causal"], window=st["window"],
+                softcap=st["softcap"], reps=3,
+                label=f"prefill {kind} layer operands")
+            main_path[kind]["launches"] = tap.seen[(shapes, static)]
+        del tap, kept, q2, k2, v2
+        if set(main_path) != {"global", "local"}:
+            raise AssertionError(f"tapped {sorted(main_path)} layers")
+
+        # -- the path: decode on from the 32k cache ---------------------
+        arena_len = PREFILL_S + DECODE_STEPS
+        arena = padded_cache(cache, arena_len)
+        del cache
+        nxt = torch.argmax(logits, dim=-1)[:, None]
+
+        def decode_all():
+            nonlocal nxt
+            times = []
+            for t in range(DECODE_STEPS):
+                t1 = time.monotonic()
+                lg, _ = decode_step(cfg, params, arena, {"tokens": nxt},
+                                    torch.tensor([PREFILL_S + t], device=dev))
+                nxt = torch.argmax(lg, dim=-1)[:, None]
+                torch.cuda.synchronize()
+                times.append(time.monotonic() - t1)
+                if not bool(torch.isfinite(lg).all()):
+                    raise AssertionError(f"decode step {t}: logits not finite")
+            return times
+
+        step_s, dec_s, n_dec = run_path("decode", "flash_attention_fwd",
+                                        decode_all, required=False)
+        log(f"[model] decode {DECODE_STEPS} tokens after the {PREFILL_S} "
+            f"prefill (arena {arena_len}): {dec_s:.3f} s, median step "
+            f"{statistics.median(step_s) * 1e3:.3f} ms, first "
+            f"{step_s[0] * 1e3:.3f} ms, {n_dec} flash_attention_fwd "
+            f"launches (the decode product is plain PyTorch)")
+        # where the time goes: the prefill again, warm (the path's run
+        # includes first-call costs), timed, then under the profiler; and
+        # four decode steps (rewriting the arena's last four rows) under
+        # the profiler
+        t1 = time.monotonic()
+        prefill(cfg, params, {"tokens": toks[:, :PREFILL_S]})
+        torch.cuda.synchronize()
+        warm_s = time.monotonic() - t1
+        log(f"[model] prefill S={PREFILL_S} again, warm: {warm_s:.3f} s, "
+            f"{PREFILL_S / warm_s:.1f} tokens/s")
+        prof = {"prefill": device_busy(
+            lambda: prefill(cfg, params, {"tokens": toks[:, :PREFILL_S]}),
+            f"prefill S={PREFILL_S}")}
+
+        def four_steps():
+            for t in range(arena_len - 4, arena_len):
+                decode_step(cfg, params, arena, {"tokens": nxt},
+                            torch.tensor([t], device=dev))
+
+        prof["decode"] = device_busy(four_steps, "decode, 4 steps")
+        prof["prefill"]["warm_wall_ms"] = warm_s * 1e3
+        del arena, logits
+
+        # -- whole model, kernel against plain version ------------------
+        cmp = compare_model(cfg, params, toks[:, :MODEL_CMP_S + 1], dev)
+    del params
+    torch.cuda.empty_cache()
+
+    # -- the path: serving --------------------------------------------------
+    rep, serve_s, n_srv = run_path(
+        "serve", "flash_attention_fwd",
+        lambda: serve(ARCH, smoke=False, seed=0, device=dev, **SERVE),
+        required=False)
+    if rep["requests"] != SERVE["n_requests"]:
+        raise AssertionError(f"serve answered {rep['requests']} of "
+                             f"{SERVE['n_requests']} requests")
+    log(f"[serve] {ARCH} full width, {SERVE}: {rep['requests']} requests, "
+        f"{rep['tokens']} tokens, {rep['engine_decode_steps']} decode steps, "
+        f"{rep['rounds']} rounds, {rep['wall_s']:.3f} s in the batcher, "
+        f"{rep['tok_per_s']:.1f} tok/s, p50 TTFT {rep['ttft_p50']:.3f} s, "
+        f"{n_srv} flash_attention_fwd launches")
+    torch.cuda.empty_cache()
+    return {"prefill": {"seq": PREFILL_S, "batch": 1, "seconds": pre_s,
+                        "tokens_per_s": PREFILL_S / pre_s,
+                        "peak_memory_gb": peak_gb, "launches": n_pre,
+                        "init_params_s": init_s, "n_params": n_params},
+            "main_path_operands": main_path,
+            "decode": {"steps": DECODE_STEPS, "arena": arena_len,
+                       "seconds": dec_s, "step_ms": [t * 1e3 for t in step_s],
+                       "median_step_ms": statistics.median(step_s) * 1e3,
+                       "launches": n_dec},
+            "whole_model": cmp, "profile": prof,
+            "serve": {k: rep[k] for k in ("requests", "tokens", "rounds",
+                                          "wall_s", "tok_per_s", "ttft_p50",
+                                          "ttft_p99", "engine_decode_steps")}
+            | {"seconds": serve_s, "launches": n_srv, **SERVE},
+            "launches": {"prefill": n_pre, "decode": n_dec, "serve": n_srv}}
+
+
+def compare_model(cfg, params, toks, dev) -> dict:
+    """Last-position logits of ``prefill`` at S = 4096 with the kernel and
+    with the plain version forced (same weights), and of prefill(S) plus
+    one decode step against prefill(S + 1): the whole model, right at full
+    width."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+
+    s = toks.shape[1] - 1
+
+    def close(a, b, what):
+        a, b = a.float(), b.float()
+        rel = float((a - b).abs().max() / b.abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
+        same = bool((a.argmax(-1) == b.argmax(-1)).all())
+        log(f"[model] {what}: max |d logit| / max |logit| {rel:.3e} "
+            f"(allowed {MODEL_REL_TOL:.3e}), cosine {cos:.6f} (allowed "
+            f">= {MODEL_MIN_COS}), same argmax {same}")
+        if not (rel <= MODEL_REL_TOL and cos >= MODEL_MIN_COS):
+            raise AssertionError(f"{what}: logits disagree beyond tolerance")
+        return {"rel_err": rel, "cosine": cos, "same_argmax": same}
+
+    lk, cache = prefill(cfg, params, {"tokens": toks[:, :s]})
+    lr, _ = prefill(cfg, params, {"tokens": toks[:, :s]}, backend="ref")
+    out = {"seq": s, "kernel_vs_plain": close(lk, lr, f"prefill S={s}, "
+                                              f"kernel vs plain version")}
+    arena = padded_cache(cache, s + 1)
+    ld, _ = decode_step(cfg, params, arena, {"tokens": toks[:, s:s + 1]},
+                        torch.tensor([s], device=dev))
+    lf, _ = prefill(cfg, params, {"tokens": toks})
+    out["decode_vs_prefill"] = close(ld, lf, f"prefill {s} + decode 1 vs "
+                                             f"prefill {s + 1}")
+    out.update(rel_tol=MODEL_REL_TOL, min_cos=MODEL_MIN_COS)
+    return out
+
+
+def padded_cache(tree, length: int):
+    """The prefill cache padded with zeros to ``length`` positions, each
+    leaf in its own dtype (float32 k, bf16 v in a bf16 model), as
+    ``tests/test_models_consistency.py`` pads the reference's."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: padded_cache(v, length) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [padded_cache(v, length) for v in tree]
+    out = tree.new_zeros((tree.shape[0], length, *tree.shape[2:]))
+    out[:, :tree.shape[1]] = tree
+    return out
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -552,17 +1065,40 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
     dev = torch.device("cuda", 0)
+    # the plain versions' float32 products run in full float32, not TF32,
+    # and their bf16 products reduce in float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t_start = time.monotonic()
     card = phase_environment()
     phase_build()
     kernels = {"uts_hash": phase_kernel_uts(dev),
                "mandelbrot": phase_kernel_mandelbrot(dev)}
+    flash_fixed = phase_flash_fixed(dev)
     uts = phase_uts(dev, UTS_DEPTH)
     ms = phase_ms(dev, MS_SIDE, MS_DWELL)
     paper = phase_ms_paper_size(dev)
-    # run_path has already required a launch on every path
+    model = phase_model(dev)
+    # run_path has already required a launch on every path that runs a
+    # hand kernel
     kernels["uts_hash"]["launches_by_path"] = uts["launches"]
     kernels["mandelbrot"]["launches_by_path"] = ms["launches"]
+    # the flash line is measured on the prefill's own operands: a global
+    # (causal, S = 32,768) layer, with the local (window 512) one beside it
+    glob, loc = (model["main_path_operands"][k] for k in ("global", "local"))
+    kernels["flash_attention_fwd"] = {
+        "max_abs_err": max(glob["max_abs_err"], loc["max_abs_err"]),
+        "max_abs_err_float32": max(glob["float32"]["max_abs_err"],
+                                   loc["float32"]["max_abs_err"]),
+        "matched": True, "launches_by_path": model["launches"],
+        **{k: glob[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")},
+        "shape": glob["shape"] + ", causal (global layer)",
+        "library_dtype": glob["library_dtype"],
+        "local_layer": {k: loc[k] for k in (
+            "shape", "window", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err", "launches")}}
 
     summary = [{"name": name, "route": "cuda",
                 "source": KERNEL_SOURCES[name][0],
@@ -573,10 +1109,13 @@ def main() -> int:
                 "matched": k["matched"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
+               | ({"local_layer": k["local_layer"]} if "local_layer" in k
+                  else {})
                for name, k in kernels.items()]
     report = {"card": card, "device": torch.cuda.get_device_name(0),
               "seconds": time.monotonic() - t_start, "kernels": kernels,
-              "uts": uts, "ms": ms, "ms_paper_size": paper}
+              "flash_fixed_shapes": flash_fixed, "uts": uts, "ms": ms,
+              "ms_paper_size": paper, "model": model}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"[done] {report['seconds']:.1f} s; report in "

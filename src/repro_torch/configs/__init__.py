@@ -1,1 +1,54 @@
-"""Workload configurations of the port."""
+"""Workload configurations of the port.
+
+``paper_workloads`` holds the paper's UTS and Mariani-Silver rows.  The
+architecture registry (``--arch <id>``) is the counterpart of
+``repro.configs``: the same ids in the same order, of which the port
+carries the configs it can run so far.  An id whose config is not ported
+yet raises ``KeyError`` that names ``ROADMAP.md``.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from .shapes import SHAPES, ShapeSpec, cell_applicable
+
+#: every arch id of the reference registry -> the port's module, or None
+#: where that config (and the model blocks it needs) is not ported yet
+_MODULES: Dict[str, "str | None"] = {
+    "gemma3-1b": "gemma3_1b",
+    "glm4-9b": "glm4_9b",
+    "chatglm3-6b": None,
+    "starcoder2-15b": None,
+    "deepseek-moe-16b": None,
+    "deepseek-v3-671b": None,
+    "musicgen-medium": None,
+    "rwkv6-1.6b": None,
+    "jamba-v0.1-52b": None,
+    "llava-next-mistral-7b": None,
+}
+
+ARCH_IDS: List[str] = list(_MODULES)
+
+
+def _module(arch: str):
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    name = _MODULES[arch]
+    if name is None:
+        raise KeyError(
+            f"arch {arch!r} is not ported to repro_torch yet (see ROADMAP.md, "
+            f"queue 1); ported: {[a for a, m in _MODULES.items() if m]}")
+    return importlib.import_module(f"{__name__}.{name}")
+
+
+def get_config(arch: str):
+    return _module(arch).make_config()
+
+
+def get_smoke_config(arch: str):
+    return _module(arch).make_smoke_config()
+
+
+__all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "SHAPES",
+           "ShapeSpec", "cell_applicable"]

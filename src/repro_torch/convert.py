@@ -1,15 +1,18 @@
-"""Carry workload state between the reference package and the port.
+"""Carry workload state and model weights between the reference and the port.
 
-The port's "weights" are its workload state: a UTS frontier (``Bag``)
-and a Mariani-Silver dwell image.  The reference package holds them as
-numpy uint32/int32 arrays; the port holds a frontier as int32 device
-tensors with the uint32 bit pattern.  These converters move state across
-bit-for-bit, so a frontier produced by one package can be expanded by
-the other and the results compared.
+The irregular algorithms' "weights" are their workload state: a UTS
+frontier (``Bag``) and a Mariani-Silver dwell image.  The reference
+package holds them as numpy uint32/int32 arrays; the port holds a
+frontier as int32 device tensors with the uint32 bit pattern.  The model
+stack's weights and KV caches are pytrees of arrays in the reference,
+with every stage's leaves stacked on a leading ``n_periods`` axis (the
+``jax.vmap`` of its init); the port keeps one dict per period in a list.
+These converters move state across bit for bit (bfloat16 included), so
+both packages can run the same weights and the results be compared.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Tuple
 
 import numpy as np
 import torch
@@ -18,7 +21,8 @@ from .algorithms.uts import Bag
 from .device import DeviceLike, resolve_device
 
 __all__ = ["bag_from_reference", "bag_to_reference",
-           "image_from_reference", "image_to_reference"]
+           "image_from_reference", "image_to_reference",
+           "params_from_jax", "cache_from_jax"]
 
 
 def bag_from_reference(digests_u32: np.ndarray, depths: np.ndarray,
@@ -61,3 +65,47 @@ def image_from_reference(image: np.ndarray,
     """A numpy dwell image -> int32 tensor on ``device``."""
     return torch.from_numpy(image_to_reference(image).copy()).to(
         resolve_device(device))
+
+
+def _tensor(a: Any, device: torch.device) -> torch.Tensor:
+    """A numpy array (bfloat16 from ``ml_dtypes`` included) -> a tensor of
+    the same dtype and bits on ``device``."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
+def _map(tree: Any, fn) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _unstack(cfg, tree: dict, device: DeviceLike) -> dict:
+    device = resolve_device(device)
+    out = {}
+    for key, sub in tree.items():
+        if key.startswith("stage"):
+            n = cfg.stages[int(key[len("stage"):])].n_periods
+            out[key] = [_map(sub, lambda a, p=p: _tensor(np.asarray(a)[p],
+                                                          device))
+                        for p in range(n)]
+        else:
+            out[key] = _map(sub, lambda a: _tensor(a, device))
+    return out
+
+
+def params_from_jax(cfg, tree: dict, device: DeviceLike = None) -> dict:
+    """The reference's ``init_params`` pytree (leaves as numpy arrays) ->
+    the port's parameters: stage leaves unstacked into one dict per
+    period, every leaf the same dtype and bits."""
+    return _unstack(cfg, tree, device)
+
+
+def cache_from_jax(cfg, tree: dict, device: DeviceLike = None) -> dict:
+    """The reference's decode cache (from ``init_cache`` or ``prefill``,
+    leaves as numpy arrays) -> the port's per-period cache."""
+    return _unstack(cfg, tree, device)

@@ -1,0 +1,158 @@
+"""Model-layout wrapper: flash attention through the port's dispatch.
+
+Counterpart of ``repro.kernels.flash_attention.ops``.  It registers op
+``flash_attention_fwd`` with no elastic axes (the model layer hands over
+whole sequences; the kernel masks its own ragged edge), whose CUDA body
+launches the hand-written kernel ``csrc/flash_attention.cu`` and whose
+reference body is the plain PyTorch version of ``ref.py``.
+:func:`flash_attention_fused` moves the model's [B, S, Hkv, G, D] layout
+to the kernel's [BHG, S, D] batch of heads and back.
+
+``flash_attention_fused`` keeps the reference's ``q_chunk`` and
+``kv_chunk`` arguments for its callers, and drops them: they sized the
+Pallas kernel's VMEM blocks.  The CUDA kernel uses its own 64 x 64
+tiles and the plain version its own row blocks, which change no result.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from .. import _build
+from ..dispatch import KernelOp, dispatch, record_launch, register_kernel
+from .ref import flash_attention_ref
+
+__all__ = ["flash_attention_fused", "flash_attention_ref",
+           "flash_attention_cuda", "kernel_tiles"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: (q and k, v) dtype pairs the kernel is built for; a bf16 model feeds the
+#: last one (RoPE returns float32 q and k)
+_DTYPE_PAIRS = ((torch.float32, torch.float32),
+                (torch.bfloat16, torch.bfloat16),
+                (torch.float32, torch.bfloat16))
+_HEAD_DIMS = (16, 32, 64, 128, 256)
+#: the kernel's grid puts heads on blockIdx.y
+_MAX_HEADS = 65535
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel's library, built and loaded on first use."""
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    lib.flash_attention_block_q.restype = ctypes.c_int
+    lib.flash_attention_block_k.restype = ctypes.c_int
+    return lib
+
+
+def kernel_tiles() -> tuple:
+    """The CUDA kernel's (query rows, keys) per tile."""
+    lib = _lib()
+    return lib.flash_attention_block_q(), lib.flash_attention_block_k()
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: Optional[int] = None,
+                         softcap: Optional[float] = None) -> torch.Tensor:
+    """Launch the CUDA kernel. q: [BHG, Sq, D] (pre-scaled);
+    k, v: [BHkv, Skv, D]; q and k of one dtype, (q/k, v) float32 and
+    float32, bfloat16 and bfloat16, or float32 and bfloat16; D in
+    {16, 32, 64, 128, 256}.  Returns [BHG, Sq, D] in q's dtype."""
+    dev = q.device
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
+        raise ValueError(
+            f"flash_attention_cuda: CUDA tensors on one device expected, got "
+            f"{q.device}, {k.device}, {v.device}")
+    if k.dtype != q.dtype or (q.dtype, v.dtype) not in _DTYPE_PAIRS:
+        raise TypeError(
+            f"flash_attention_cuda: q and k of one dtype, (q/k, v) dtypes "
+            f"one of {[tuple(map(str, p)) for p in _DTYPE_PAIRS]} expected, "
+            f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(
+            f"flash_attention_cuda: q [BHG, Sq, D], k and v [BHkv, Skv, D] "
+            f"expected, got {tuple(q.shape)}, {tuple(k.shape)}, "
+            f"{tuple(v.shape)}")
+    bhg, sq, d = q.shape
+    bhkv, skv, dk = k.shape
+    if dk != d or d not in _HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention_cuda: head dims {d} (q) and {dk} (k, v) must "
+            f"agree and be one of {_HEAD_DIMS}")
+    if bhkv == 0 or bhg % bhkv or bhg > _MAX_HEADS:
+        raise ValueError(
+            f"flash_attention_cuda: {bhg} query heads on {bhkv} KV heads "
+            f"(a multiple, at most {_MAX_HEADS})")
+    if max(sq, skv) >= 2**30:
+        raise ValueError(f"flash_attention_cuda: sequence {max(sq, skv)} "
+                         f"beyond the kernel's 32-bit positions")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(
+                f"flash_attention_cuda: {name} must be contiguous and "
+                f"16-byte aligned")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention_cuda: window {window} < 1")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"flash_attention_cuda: softcap {softcap} <= 0")
+    out = torch.empty((bhg, sq, d), dtype=q.dtype, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bhg,
+            bhg // bhkv, sq, skv, d, _DTYPES[q.dtype], _DTYPES[v.dtype],
+            int(causal),
+            -1 if window is None else int(window),
+            0.0 if softcap is None else float(softcap), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention kernel launch failed: "
+            f"{lib.flash_attention_error_string(err).decode()} "
+            f"(cudaError {err})")
+    record_launch("flash_attention_fwd")
+    return out
+
+
+register_kernel(KernelOp(
+    name="flash_attention_fwd",
+    cuda_body=flash_attention_cuda,
+    reference_body=flash_attention_ref,
+    # no elastic axes: the kernel masks the ragged edge itself
+    arg_dims=((), (), ()),
+    pad_values=(0, 0, 0),
+    out_dims=(),
+    bucket_floor=1,
+    cost_hint=lambda q2, k2, v2: float(
+        q2.shape[0] * q2.shape[1] * k2.shape[1]),
+))
+
+
+def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: Optional[int] = None,
+                          softcap: Optional[float] = None,
+                          q_chunk: int = 512, kv_chunk: int = 512,
+                          backend: Optional[str] = None) -> torch.Tensor:
+    """q: [B, Sq, Hkv, G, Dk] (pre-scaled); k/v: [B, Skv, Hkv, D*].
+    Returns [B, Sq, Hkv, G, Dv].  ``backend``: "cuda", "ref", or None =
+    from the operands' device."""
+    del q_chunk, kv_chunk  # no result depends on them (module docstring)
+    b, sq, hkv, g, dk = q.shape
+    skv = k.shape[1]
+    dv = v.shape[-1]
+    q2 = q.permute(0, 2, 3, 1, 4).reshape(b * hkv * g, sq, dk).contiguous()
+    k2 = k.permute(0, 2, 1, 3).reshape(b * hkv, skv, dk).contiguous()
+    v2 = v.permute(0, 2, 1, 3).reshape(b * hkv, skv, dv).contiguous()
+    out = dispatch("flash_attention_fwd", q2, k2, v2, backend=backend,
+                   causal=causal, window=window, softcap=softcap)
+    return out.reshape(b, hkv, g, sq, dv).permute(0, 3, 1, 2, 4)

@@ -1,0 +1,16 @@
+"""Model zoo of the port: the dense attention + MLP families in PyTorch.
+
+Counterpart of ``repro.models`` with the same exports, as far as they
+are ported (no ``loss_fn``: training is not ported yet).
+"""
+from .config import (AttentionConfig, BlockSpec, MambaConfig, MLAConfig,
+                     ModelConfig, MoEConfig, Stage)
+from .transformer import (ShardCtx, decode_step, forward, init_cache,
+                          init_params, prefill)
+
+__all__ = [
+    "AttentionConfig", "BlockSpec", "MambaConfig", "MLAConfig",
+    "ModelConfig", "MoEConfig", "Stage",
+    "ShardCtx", "decode_step", "forward", "init_cache", "init_params",
+    "prefill",
+]

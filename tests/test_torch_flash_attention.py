@@ -1,0 +1,256 @@
+"""The port's flash attention against the reference package.
+
+The plain PyTorch version (what ``flash_attention_fused`` runs on CPU
+tensors) against the JAX ``flash_attention_ref`` and the Pallas kernel in
+interpret mode, on the shapes of ``tests/test_flash_kernel.py``, in
+float32 to the tolerance the JAX tests use (``atol=3e-5, rtol=1e-4``).
+Also the [B, S, Hkv, G, D] <-> [BHG, S, D] layout moves, the soft-cap
+(which the Pallas kernel lacks) against a float64 numpy oracle, and the
+row blocks, and the pair of dtypes a bf16 model feeds it (float32 q and
+k, bf16 v).  The test marked ``cuda`` holds the hand kernel against the
+plain version and needs the card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import \
+    flash_attention_fused as jax_flash_fused
+from repro.models.attention import flash_attention as jax_model_flash
+from repro_torch.kernels.dispatch import (compile_log, dispatch, get_kernel,
+                                          registered_kernels)
+from repro_torch.kernels.flash_attention.ops import (flash_attention_cuda,
+                                                     flash_attention_fused)
+from repro_torch.kernels.flash_attention import ref as ref_module
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.models.attention import flash_attention
+
+ATOL, RTOL = 3e-5, 1e-4
+
+SHAPES = [
+    (1, 64, 1, 1, 16, 16, None, 16, 16),
+    (2, 48, 2, 2, 8, 8, None, 16, 16),
+    (1, 80, 1, 2, 16, 8, 24, 16, 16),   # sliding window + GQA
+    (1, 33, 1, 1, 8, 8, None, 16, 8),   # ragged S (padding path)
+    (1, 64, 1, 1, 16, 16, 8, 32, 16),   # narrow window
+]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(b, s, hkv, g, dk, dv, seed):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((b, s, hkv, g, dk)) * 0.3).astype(np.float32)
+    k = (rng.standard_normal((b, s, hkv, dk)) * 0.3).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, dv)).astype(np.float32)
+    return q, k, v
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a.copy()) for a in arrays]
+
+
+def _bf16_allowed(want: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Per-element bound for two versions that each round every p_j to bf16
+    once (at any scale) and their output once: with u = 2**-8 and
+    weight = sum_j p_j |v_j|, |got - want| <= u (2 weight + |want| + |got|),
+    solved for the error, plus the float32 tolerance for the scores' sums."""
+    u = 2**-8
+    return 2 * u * (weight.float() + want.float().abs()) / (1 - u) + ATOL
+
+
+def _oracle(q, k, v, *, causal=True, window=None, softcap=None):
+    """float64 direct softmax attention in the model layout."""
+    b, s, hkv, g, _ = q.shape
+    skv = k.shape[1]
+    sc = np.einsum("bqhgd,bkhd->bhgqk", q.astype(np.float64),
+                   k.astype(np.float64))
+    if softcap is not None:
+        sc = softcap * np.tanh(sc / softcap)
+    qp, kp = np.arange(s)[:, None], np.arange(skv)[None, :]
+    mask = np.ones((s, skv), bool)
+    if causal:
+        mask &= qp >= kp
+    if window is not None:
+        mask &= (qp - kp) < window
+    sc = np.where(mask, sc, -np.inf)
+    p = np.exp(sc - sc.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    return np.einsum("bhgqk,bkhd->bqhgd", p, v.astype(np.float64))
+
+
+@pytest.mark.parametrize("b,s,hkv,g,dk,dv,window,qc,kc", SHAPES)
+def test_plain_matches_jax_ref_and_interpret(b, s, hkv, g, dk, dv, window,
+                                             qc, kc):
+    q, k, v = _inputs(b, s, hkv, g, dk, dv, seed=s + (window or 0))
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want_ref = np.asarray(jax_flash_fused(jq, jk, jv, window=window,
+                                          backend="ref"))
+    want_int = np.asarray(jax_flash_fused(jq, jk, jv, window=window,
+                                          q_chunk=qc, kv_chunk=kc,
+                                          backend="interpret"))
+    got = flash_attention_fused(*_t(q, k, v), window=window, q_chunk=qc,
+                                kv_chunk=kc).numpy()
+    assert got.shape == (b, s, hkv, g, dv)
+    np.testing.assert_allclose(got, want_ref, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got, want_int, atol=ATOL, rtol=RTOL)
+
+
+def test_model_flash_matches_jax_model_path():
+    """The port's ``models.attention.flash_attention`` (what every prefill
+    layer runs) against the reference model's XLA triangular flash."""
+    q, k, v = _inputs(2, 40, 2, 2, 8, 8, seed=7)
+    for window in (None, 16):
+        want = np.asarray(jax_model_flash(
+            *(jnp.asarray(a) for a in (q, k, v)), window=window,
+            q_chunk=16, kv_chunk=8))
+        got = flash_attention(*_t(q, k, v), window=window).numpy()
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_layout_round_trip_is_per_head_attention():
+    """[B, S, Hkv, G, D] -> [BHG, S, D] -> back: each (b, h, g) of the
+    fused call equals the plain version run on that one head alone."""
+    b, s, hkv, g, d = 2, 24, 2, 3, 8
+    q, k, v = _t(*_inputs(b, s, hkv, g, d, d, seed=3))
+    out = flash_attention_fused(q, k, v, window=10)
+    assert out.shape == (b, s, hkv, g, d)
+    for bi in range(b):
+        for h in range(hkv):
+            for gi in range(g):
+                one = flash_attention_ref(
+                    q[bi, :, h, gi][None].contiguous(),
+                    k[bi, :, h][None].contiguous(),
+                    v[bi, :, h][None].contiguous(), window=10)[0]
+                torch.testing.assert_close(out[bi, :, h, gi], one,
+                                           atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("window", [None, 12])
+def test_softcap_on_plain_path(window):
+    q, k, v = _inputs(1, 30, 1, 2, 8, 8, seed=5)
+    q = q * 10.0                       # scores well past the cap
+    got = flash_attention_fused(*_t(q, k, v), window=window,
+                                softcap=2.0).numpy()
+    want = _oracle(q, k, v, window=window, softcap=2.0)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    uncapped = flash_attention_fused(*_t(q, k, v), window=window).numpy()
+    assert np.abs(uncapped - got).max() > 1e-2
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 7),
+                                           (False, None)])
+def test_plain_row_blocks_change_nothing(causal, window, monkeypatch):
+    q, k, v = _inputs(1, 37, 2, 2, 8, 8, seed=11)
+    q2 = torch.from_numpy(q).permute(0, 2, 3, 1, 4).reshape(4, 37, 8)
+    k2 = torch.from_numpy(k).permute(0, 2, 1, 3).reshape(2, 37, 8)
+    v2 = torch.from_numpy(v).permute(0, 2, 1, 3).reshape(2, 37, 8)
+    whole = flash_attention_ref(q2, k2, v2, causal=causal, window=window)
+    # a score budget of 4 heads x 5 rows x 37 keys: blocks of 5 rows
+    monkeypatch.setattr(ref_module, "_SCORE_BUDGET", 4 * 5 * 37)
+    blocks = flash_attention_ref(q2, k2, v2, causal=causal, window=window)
+    torch.testing.assert_close(blocks, whole, atol=1e-6, rtol=1e-6)
+    want = _oracle(q, k, v, causal=causal, window=window)
+    got = whole.reshape(1, 2, 2, 37, 8).permute(0, 3, 1, 2, 4).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_plain_bf16_matches_jax_ref():
+    """bfloat16 operands: p is cast to v's dtype before the PV product and
+    the output is in q's dtype, as in the JAX oracle.  Tolerance: two bf16
+    roundings (2**-8 relative each) of outputs of magnitude below 2."""
+    q, k, v = _inputs(1, 48, 1, 2, 16, 16, seed=13)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = np.asarray(jax_flash_fused(jq, jk, jv, window=20, backend="ref"),
+                      np.float32)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = flash_attention_fused(tq, tk, tv, window=20)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2 * 2**-7,
+                               rtol=0)
+
+
+def test_plain_mixed_dtypes_match_jax_ref():
+    """float32 q and k with bf16 v, as a bf16 model feeds attention (its
+    RoPE returns float32): scores in float32, p cast to bf16, output in q's
+    dtype, as in the JAX oracle."""
+    q, k, v = _inputs(1, 40, 1, 4, 32, 32, seed=17)
+    want = np.array(jax_flash_fused(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v, jnp.bfloat16),
+                                    window=24, backend="ref"))
+    tq, tk, tv = _t(q, k, v)
+    got = flash_attention_fused(tq, tk, tv.to(torch.bfloat16), window=24)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    weight = flash_attention_fused(tq, tk, tv.to(torch.bfloat16).float().abs(),
+                                   window=24)
+    want = torch.from_numpy(want)
+    assert bool(((got - want).abs() <= _bf16_allowed(want, weight)).all())
+
+
+def test_registration_has_no_elastic_axes():
+    assert "flash_attention_fwd" in registered_kernels()
+    op = get_kernel("flash_attention_fwd")
+    assert op.arg_dims == ((), (), ()) and op.out_dims == ()
+    q, k, v = _t(*_inputs(1, 20, 1, 2, 8, 8, seed=1))
+    q2 = q.permute(0, 2, 3, 1, 4).reshape(2, 20, 8).contiguous()
+    k2 = k.permute(0, 2, 1, 3).reshape(1, 20, 8).contiguous()
+    v2 = v.permute(0, 2, 1, 3).reshape(1, 20, 8).contiguous()
+    dispatch("flash_attention_fwd", q2, k2, v2, causal=True, window=None,
+             softcap=None)
+    sigs = {sig for (backend, _, sig) in compile_log("flash_attention_fwd")[
+        "flash_attention_fwd"] if backend == "ref"}
+    assert (((2, 20, 8), "torch.float32"), ((1, 20, 8), "torch.float32"),
+            ((1, 20, 8), "torch.float32")) in sigs
+
+
+def test_cuda_body_refuses_cpu_tensors():
+    q, k, v = _t(*_inputs(1, 16, 1, 1, 64, 64, seed=2))
+    q2, k2, v2 = q[:, :, 0, 0], k[:, :, 0], v[:, :, 0]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_cuda(q2.contiguous(), k2.contiguous(),
+                             v2.contiguous())
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        flash_attention_fused(q, k, v, backend="cuda")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qk_dtype,v_dtype,d", [
+    (torch.float32, torch.float32, 64), (torch.bfloat16, torch.bfloat16, 128),
+    (torch.bfloat16, torch.bfloat16, 256), (torch.float32, torch.bfloat16, 256),
+    (torch.float32, torch.float32, 16), (torch.bfloat16, torch.bfloat16, 32)])
+@pytest.mark.parametrize("s,window,softcap", [(200, None, None),
+                                              (333, 64, None),
+                                              (130, None, 5.0)])
+def test_cuda_kernel_matches_plain(cuda_device, qk_dtype, v_dtype, d, s,
+                                   window, softcap):
+    q, k, v = _inputs(2, s, 1, 4, d, d, seed=s)
+    tq, tk = (torch.from_numpy(a).to(cuda_device, qk_dtype)
+              for a in (q * d ** -0.5 / 0.3, k / 0.3))
+    tv = torch.from_numpy(v).to(cuda_device, v_dtype)
+    got = flash_attention_fused(tq, tk, tv, window=window, softcap=softcap)
+    want = flash_attention_fused(tq, tk, tv, window=window, softcap=softcap,
+                                 backend="ref")
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == qk_dtype
+    if v_dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+    else:
+        weight = flash_attention_fused(tq.float(), tk.float(),
+                                       tv.float().abs(), window=window,
+                                       softcap=softcap, backend="ref")
+        assert bool(((got.float() - want.float()).abs()
+                     <= _bf16_allowed(want, weight)).all())

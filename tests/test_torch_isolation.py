@@ -1,4 +1,5 @@
-"""The port stands alone: it runs its main path without importing jax or
+"""The port stands alone: it runs its main paths (UTS, Mariani-Silver, and
+the model's prefill, decode and serving loop) without importing jax or
 any module of the reference package, no source file of it (nor
 ``chip_smoke.py``) imports either, and ``device=None`` never falls back
 to the CPU."""
@@ -39,8 +40,25 @@ with make_pool("elastic", max_concurrency=4, invoke_overhead=0.0,
     r = run_irregular(pool, uts_spec(UTSParams(max_depth=5), device="cpu"))
     m = run_irregular(pool, ms_spec(p, device="cpu"))
 same = bool(np.array_equal(m.output["image"], naive_render(p, device="cpu")))
+import torch
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch.serve import serve
+from repro_torch.models import decode_step, init_cache, init_params, prefill
+cfg = get_smoke_config("gemma3-1b")
+params = init_params(cfg, 0, device="cpu")
+toks = torch.arange(12)[None] % cfg.vocab_size
+logits, cache = prefill(cfg, params, {"tokens": toks})
+arena = init_cache(cfg, 1, 13, device="cpu")
+arena["stage0"][0]["block0"]["mixer"]["k"][:, :12] = \
+    cache["stage0"][0]["block0"]["mixer"]["k"]
+step, _ = decode_step(cfg, params, arena, {"tokens": toks[:, -1:]},
+                      torch.tensor([12]))
+rep = serve("gemma3-1b", smoke=True, n_requests=3, n_slots=2, max_seq=32,
+            device="cpu")
 print(json.dumps({
     "uts": n, "uts_pool": r.output, "ms_equal": same,
+    "prefill": list(logits.shape), "decode": list(step.shape),
+    "served": rep["requests"],
     "jax": sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")),
     "repro": sorted(k for k in sys.modules
                     if k == "repro" or k.startswith("repro.")),
@@ -57,6 +75,8 @@ def test_main_path_runs_without_jax_or_repro():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["uts"] == 416 and res["uts_pool"] == 416
     assert res["ms_equal"]
+    assert res["prefill"] == res["decode"] == [1, 256]
+    assert res["served"] == 3
     assert res["jax"] == []
     assert res["repro"] == []
 

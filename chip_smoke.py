@@ -7,7 +7,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 
 1. environment: the card's name and power limit (``nvidia-smi``);
 2. build: compiles every CUDA kernel of the port from ``src/repro_torch/
-   kernels/csrc`` with ``nvcc`` (one process per source, all at once);
+   kernels/csrc`` with ``nvcc`` (one process per source, all at once), and
+   fails unless the flash library's machine code holds tensor-core
+   instructions (``cuobjdump -sass``: HGMMA and FFMA counted);
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, bit-equal, with CUDA-event times (median of 10 runs) and the least
    time the card could take for the same work;
@@ -70,6 +72,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -163,8 +166,14 @@ def phase_environment() -> str:
     return card
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Builds every kernel, then reads the flash library's machine code:
+    its products must be tensor-core instructions (HGMMA, Hopper's wgmma),
+    and the FFMA count (the CUDA cores' fused multiply-adds, which the
+    softmax and the float32 splits still use) stands beside it."""
+    import shutil
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ops import kernel_tiles
     t0 = time.monotonic()
     built = _build.build()
     log(f"[build] {sorted(built) or 'all cached'} in "
@@ -173,6 +182,21 @@ def phase_build() -> None:
         for line in _build.compiler_report(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(_build._target("flash_attention"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}[.\s]", sass))
+              for op in ("HGMMA", "FFMA")}
+    tiles = kernel_tiles()
+    log(f"[build] flash_attention SASS: {counts['HGMMA']} HGMMA, "
+        f"{counts['FFMA']} FFMA instructions; tiles (query rows, keys) "
+        f"{tiles}")
+    if counts["HGMMA"] == 0:
+        raise AssertionError("flash_attention: no HGMMA in its machine code; "
+                             "its products are not on the tensor cores")
+    return {"flash_sass": counts, "flash_tiles": list(tiles)}
 
 
 def _hashlib_digest(parent: list, ix: int) -> list:
@@ -578,8 +602,10 @@ def phase_ms_paper_size(dev) -> dict:
 
 # -- the model slice: gemma3-1b prefill, decode and serving ----------------------
 
-#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
+#: H100 SXM dense tensor-core peaks (NVIDIA data sheet, 700 W): bf16, and
+#: TF32, which a float32 product needs three passes of (``flash_bound``)
 PEAK_BF16_S = 989e12
+PEAK_TF32_S = 495e12
 #: the model path: gemma3-1b at full width; prefill_32k's sequence with the
 #: batch cut from 32 to 1, then DECODE_STEPS tokens on from its cache
 ARCH = "gemma3-1b"
@@ -611,20 +637,30 @@ def live_pairs(sq: int, skv: int, causal: bool, window) -> int:
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
-def _peak(dtype) -> float:
+def _product_s(flops: float, dtype) -> float:
+    """Least seconds for a product of ``flops`` whose operands are of
+    ``dtype``, kept to that type's accuracy.  bf16 runs at the bf16
+    tensor-core rate.  A float32 product takes three TF32 passes (hi.hi +
+    hi.lo + lo.hi of each operand split into two TF32 values): one pass keeps
+    10 of float32's 23 mantissa bits and misses the float32 tolerance
+    (``tests/test_torch_flash_attention.py`` holds both), and three passes at
+    495 TFLOP/s still beat the CUDA cores' 67."""
     import torch
-    return PEAK_BF16_S if dtype == torch.bfloat16 else PEAK_OPS_S
+    if dtype == torch.bfloat16:
+        return flops / PEAK_BF16_S
+    return 3 * flops / PEAK_TF32_S
 
 
 def flash_bound(q2, k2, v2, causal: bool, window) -> tuple:
     """Least card time for one flash call: the live pairs' products (2 * D
-    flops each for q.k^T at the rate of q's and k's type, 2 * D for p.v at
-    the rate of v's type, the two added), against q, k, v read and o
-    written once."""
+    flops each for q.k^T in q's and k's type, 2 * D for p.v in v's type,
+    each at ``_product_s``'s rate, the two added), against q, k, v read and
+    o written once."""
     bhg, sq, d = q2.shape
     skv = k2.shape[1]
     pair_flops = bhg * live_pairs(sq, skv, causal, window) * 2 * d
-    t_ops = (pair_flops / _peak(q2.dtype) + pair_flops / _peak(v2.dtype)) * 1e3
+    t_ops = (_product_s(pair_flops, q2.dtype) +
+             _product_s(pair_flops, v2.dtype)) * 1e3
     n_bytes = (2 * q2.numel() + k2.numel()) * q2.element_size() + \
         v2.numel() * v2.element_size()
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
@@ -1072,7 +1108,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t_start = time.monotonic()
     card = phase_environment()
-    phase_build()
+    build = phase_build()
     kernels = {"uts_hash": phase_kernel_uts(dev),
                "mandelbrot": phase_kernel_mandelbrot(dev)}
     flash_fixed = phase_flash_fixed(dev)
@@ -1113,7 +1149,8 @@ def main() -> int:
                   else {})
                for name, k in kernels.items()]
     report = {"card": card, "device": torch.cuda.get_device_name(0),
-              "seconds": time.monotonic() - t_start, "kernels": kernels,
+              "seconds": time.monotonic() - t_start, "build": build,
+              "kernels": kernels,
               "flash_fixed_shapes": flash_fixed, "uts": uts, "ms": ms,
               "ms_paper_size": paper, "model": model}
     OUT_DIR.mkdir(parents=True, exist_ok=True)

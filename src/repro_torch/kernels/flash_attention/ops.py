@@ -10,8 +10,9 @@ to the kernel's [BHG, S, D] batch of heads and back.
 
 ``flash_attention_fused`` keeps the reference's ``q_chunk`` and
 ``kv_chunk`` arguments for its callers, and drops them: they sized the
-Pallas kernel's VMEM blocks.  The CUDA kernel uses its own 64 x 64
-tiles and the plain version its own row blocks, which change no result.
+Pallas kernel's VMEM blocks.  The CUDA kernel uses its own tiles (64
+query rows by 32 keys, :func:`kernel_tiles`) and the plain version its own
+row blocks, which change no result.
 """
 from __future__ import annotations
 

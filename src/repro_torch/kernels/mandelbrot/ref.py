@@ -66,27 +66,53 @@ def mandelbrot_ref(c_re: torch.Tensor, c_im: torch.Tensor,
     return dwell
 
 
+def _linspace(a: float, b: float, n: int) -> torch.Tensor:
+    """float32 ``jnp.linspace(a, b, n)`` as XLA compiles it for the CPU.
+
+    XLA's optimized HLO computes element i < n - 1 as ``a * c_i + i *
+    f32(b * r)`` with ``r = f32(1 / (n - 1))`` and ``c_i = 1 - i * r``, and
+    appends ``b``.  LLVM then contracts the final add into a fused
+    multiply-add, ``fma(i, f32(b * r), f32(a * c_i))``.  Where it unrolls,
+    it folds ``c_i = f32(1 - f32(i * r))`` at compile time, two roundings;
+    in its vector loop it computes ``c_i = fma(-i, r, 1)``, one rounding.
+    At i = 1 of an unrolled loop the product ``i * ...`` is dropped and the
+    contraction moves to the other product: ``fma(a, c_1, f32(b * r))``.
+
+    Which loop an element lands in depends on n: up to 34 every element
+    is unrolled (with the i = 1 exception); from 35 to 352, and at 513,
+    every element is unrolled without it; from 353 on, elements below
+    ``32 * ((n - 1) // 32)`` are the vector body and the rest an unrolled
+    tail.  These boundaries are XLA-CPU's code generation with JAX 0.9.0
+    on x86-64, which emits 256-bit vectors unrolled four times (32
+    float32 lanes); another compiler or host may draw them elsewhere.
+    Every fused multiply-add is :func:`_fma_f32`, exact.
+    """
+    a_ = torch.tensor(a, dtype=torch.float32)
+    b_ = torch.tensor(b, dtype=torch.float32)
+    if n == 1:
+        return a_.reshape(1)
+    r = torch.tensor(1.0 / (n - 1), dtype=torch.float32)
+    br = b_ * r
+    i = torch.arange(n - 1, dtype=torch.float32)
+    c = 1.0 - i * r                                  # folded: two roundings
+    if n >= 353 and n != 513:
+        body = 32 * ((n - 1) // 32)
+        c[:body] = _fma_f32(-i[:body], r.expand(body), torch.ones(body))
+    out = _fma_f32(i, br.expand(n - 1), a_ * c)
+    if n <= 34 and n > 2:
+        out[1] = _fma_f32(a_, c[1], i[1] * br)
+    return torch.cat([out, b_.reshape(1)])
+
+
 def coords(x0: float, y0: float, x1: float, y1: float,
            height: int, width: int, device: DeviceLike = None) -> tuple:
     """Pixel-center coordinates of a rectangle of the complex plane.
 
-    Counterpart of the reference package's ``coords`` with the arithmetic
-    of ``jnp.linspace`` written out per operation in float32
-    (``x0 * (1 - t) + x1 * t``, t = i / (n - 1)).  XLA rewrites some of
-    those operations on the CPU, so the two may differ in the last bit of
-    some coordinates; tests that compare dwells hand both packages the
-    same coordinate arrays.
+    Counterpart of the reference package's ``coords``, bit-equal to its
+    ``jnp.linspace(a, b, n, dtype=float32)`` as :func:`_linspace` says.
     """
-    def lin(a: float, b: float, n: int) -> torch.Tensor:
-        a_ = torch.tensor(a, dtype=torch.float32)
-        b_ = torch.tensor(b, dtype=torch.float32)
-        if n == 1:
-            return a_.reshape(1)
-        t = torch.arange(n - 1, dtype=torch.float32) / float(n - 1)
-        return torch.cat([a_ * (1.0 - t) + b_ * t, b_.reshape(1)])
-
-    xs = lin(x0, x1, width)
-    ys = lin(y0, y1, height)
+    xs = _linspace(x0, x1, width)
+    ys = _linspace(y0, y1, height)
     c_im, c_re = torch.meshgrid(ys, xs, indexing="ij")
     device = resolve_device(device)
     return c_re.contiguous().to(device), c_im.contiguous().to(device)

@@ -7,8 +7,10 @@ float32 to the tolerance the JAX tests use (``atol=3e-5, rtol=1e-4``).
 Also the [B, S, Hkv, G, D] <-> [BHG, S, D] layout moves, the soft-cap
 (which the Pallas kernel lacks) against a float64 numpy oracle, and the
 row blocks, and the pair of dtypes a bf16 model feeds it (float32 q and
-k, bf16 v).  The test marked ``cuda`` holds the hand kernel against the
-plain version and needs the card.
+k, bf16 v).  The kernel's scheme for float32 products on the tensor
+cores (three TF32 passes) is emulated against the float32 plain version.
+The tests marked ``cuda`` hold the hand kernel against the plain version
+and need the card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +23,8 @@ from repro.models.attention import flash_attention as jax_model_flash
 from repro_torch.kernels.dispatch import (compile_log, dispatch, get_kernel,
                                           registered_kernels)
 from repro_torch.kernels.flash_attention.ops import (flash_attention_cuda,
-                                                     flash_attention_fused)
+                                                     flash_attention_fused,
+                                                     kernel_tiles)
 from repro_torch.kernels.flash_attention import ref as ref_module
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.models.attention import flash_attention
@@ -220,6 +223,75 @@ def test_cuda_body_refuses_cpu_tensors():
         flash_attention_fused(q, k, v, backend="cuda")
 
 
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: float32 rounded to TF32's 10 mantissa bits,
+    ties away from zero, as integer rounding of the low 13 bits."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _qk_one_tf32(q, kt):
+    """q.k^T as one TF32 pass: both operands rounded, the rest exact."""
+    return (_tf32_rna(q).double() @ _tf32_rna(kt).double()).float()
+
+
+def _qk_three_tf32(q, kt):
+    """q.k^T as the kernel forms a float32 product: x = hi + lo, both TF32,
+    hi.lo + lo.hi + hi.hi (lo.lo dropped), the rest exact."""
+    qh, kh = _tf32_rna(q), _tf32_rna(kt)
+    ql, kl = _tf32_rna(q - qh), _tf32_rna(kt - kh)
+    qh, kh, ql, kl = (t.double() for t in (qh, kh, ql, kl))
+    return (qh @ kl + ql @ kh + qh @ kh).float()
+
+
+def _causal_attention_with(product, q, k, v):
+    """The plain version's arithmetic on one KV head (float32 scores, the
+    causal mask, softmax, p.v in float32) with q.k^T formed by
+    ``product``."""
+    s = product(q, k[0].T)
+    n = s.shape[-1]
+    live = torch.ones(n, n, dtype=torch.bool).tril()
+    return torch.softmax(torch.where(live, s, ref_module.NEG_INF), -1) @ v[0]
+
+
+@pytest.fixture(scope="module")
+def main_path_scale():
+    """Causal, S = 1024, D = 256, G = 4 on one KV head, at the operand
+    scales ``chip_smoke.py`` uses (q pre-scaled by D**-0.5), with the
+    float32 plain version's output and its tolerance."""
+    rng = np.random.default_rng(21)
+    s, d = 1024, 256
+    q = torch.from_numpy(
+        (rng.standard_normal((4, s, d)) * d ** -0.5).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, s, d)).astype(np.float32))
+            for _ in range(2))
+    want = flash_attention_ref(q, k, v, causal=True)
+    return q, k, v, want, ATOL + RTOL * want.abs()
+
+
+def test_three_tf32_passes_hold_the_float32_tolerance(main_path_scale):
+    q, k, v, want, allowed = main_path_scale
+    got = _causal_attention_with(_qk_three_tf32, q, k, v)
+    assert float(((got - want).abs() / allowed).max()) <= 0.1
+
+
+def test_single_pass_tf32_misses_the_float32_tolerance(main_path_scale):
+    """Why the kernel pays three passes: one TF32 pass of q.k^T (what a
+    float32 wgmma does alone) misses the float32 tolerance."""
+    q, k, v, want, allowed = main_path_scale
+    got = _causal_attention_with(_qk_one_tf32, q, k, v)
+    assert float(((got - want).abs() / allowed).max()) > 1
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    one = 1 + 2.0 ** -10                     # a TF32 value: 10 mantissa bits
+    x = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12,
+                      one + 2.0 ** -11, 1 + 3 * 2.0 ** -12],
+                     dtype=torch.float32)
+    want = torch.tensor([one, -one, 1.0, one + 2.0 ** -10, one],
+                        dtype=torch.float32)
+    assert torch.equal(_tf32_rna(x), want)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -234,7 +306,13 @@ def cuda_device():
     (torch.float32, torch.float32, 16), (torch.bfloat16, torch.bfloat16, 32)])
 @pytest.mark.parametrize("s,window,softcap", [(200, None, None),
                                               (333, 64, None),
-                                              (130, None, 5.0)])
+                                              (130, None, 5.0),
+                                              # Skv not a multiple of the
+                                              # key tile
+                                              (301, None, None),
+                                              # rows whose first live key
+                                              # tile is wholly masked
+                                              (300, 40, None)])
 def test_cuda_kernel_matches_plain(cuda_device, qk_dtype, v_dtype, d, s,
                                    window, softcap):
     q, k, v = _inputs(2, s, 1, 4, d, d, seed=s)
@@ -254,3 +332,20 @@ def test_cuda_kernel_matches_plain(cuda_device, qk_dtype, v_dtype, d, s,
                                        softcap=softcap, backend="ref")
         assert bool(((got.float() - want.float()).abs()
                      <= _bf16_allowed(want, weight)).all())
+
+
+def _trap_rows(s: int, window: int, tiles: tuple) -> list:
+    """Rows whose first live key tile in the kernel is wholly masked."""
+    bq, bk = tiles
+    return [r for r in range(s)
+            if r - window + 1 > max(0, r // bq * bq - window + 1) // bk * bk
+            + bk - 1]
+
+
+@pytest.mark.cuda
+def test_cuda_edge_cases_fall_on_the_kernel_tiles(cuda_device):
+    """The last two cases of ``test_cuda_kernel_matches_plain`` reach the
+    edges they name at the kernel's own tiles."""
+    tiles = kernel_tiles()
+    assert 301 % tiles[1] != 0
+    assert _trap_rows(300, 40, tiles)

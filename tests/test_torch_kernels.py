@@ -183,6 +183,28 @@ def test_coords_dwell_shapes():
     assert int(img.max()) <= 16 and int(img.min()) >= 0
 
 
+#: rectangles (x0, y0, x1, y1): the paper's plane, reversed, narrow,
+#: off-centre and straddling zero, twelve intervals in all
+_RECTS = [(-2.0, -1.5, 1.0, 1.5), (1.0, 1.5, -2.0, -1.5),
+          (-0.75, 0.1, -0.7, 0.15), (0.25, -1.2345, 0.5, 2.71828),
+          (-1e-3, 3.3, 2e-3, 9.1), (0.0, -0.7, 1.0, 0.3)]
+
+
+@pytest.mark.parametrize("n", list(range(2, 65)) + [100, 256, 352, 353, 512,
+                                                    513, 514, 700, 1000,
+                                                    4096])
+def test_coords_bit_equal_to_jax(n):
+    """``coords`` against the JAX ``coords`` (``jnp.linspace``) bit for bit,
+    across the sizes where XLA-CPU's loop structure changes."""
+    for rect in _RECTS:
+        for shape in ((n, 3), (3, n)):
+            want = jax_coords(*rect, *shape)
+            got = coords(*rect, *shape, device=CPU)
+            for w, g in zip(want, got):
+                assert np.array_equal(g.numpy().view(np.int32),
+                                      np.asarray(w).view(np.int32))
+
+
 def _round_f32(x: Fraction) -> np.float32:
     """Correctly rounded (ties to even) float32 of an exact rational."""
     r = np.float32(float(x))

@@ -12,7 +12,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    instructions (``cuobjdump -sass``: HGMMA and FFMA counted);
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, bit-equal, with CUDA-event times (median of 10 runs) and the least
-   time the card could take for the same work;
+   time the card could take for the same work; ``mandelbrot`` also through
+   its full-iteration build (the cycle exit off), timed in turns with the
+   kernel, and through a plain run of the kernel's cycle-exit schedule,
+   which counts the iterations its bound holds these inputs to;
 4. UTS main path: ``uts_sequential`` for depths 4..10 against the published
    tree sizes, then the paper's Table 1 first row (seed 19, b0 4, depth 14)
    through ``uts_sequential`` and through ``run_irregular`` on the elastic
@@ -22,10 +25,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (the paper's is 4096x4096: some 500,000 tasks, which the host-bound
    elastic pool, at a few hundred tasks a second, cannot finish inside
    the smoke's time limit), through
-   ``run_irregular`` on the elastic pool with and without batching; both
-   images must equal Mariani-Silver applied to ``naive_render``'s dwell
-   map on the card, pixel for pixel; then, at the paper's full size, the
-   dwell map and the number of tasks Mariani-Silver over it dispatches;
+   ``run_irregular`` on the elastic pool with and without batching, then
+   once more under ``torch.profiler`` (the device's idle share, every
+   ``mandelbrot`` launch's duration, and the share of the wall time in
+   which a launch over 1 ms ran); all three images must equal
+   Mariani-Silver applied to ``naive_render``'s dwell map on the card,
+   pixel for pixel; then, at the paper's full size, the dwell map, the
+   number of tasks Mariani-Silver over it dispatches, and the plane
+   through the kernel and its full-iteration build alone, bit-equal;
 6. flash attention at fixed shapes (run right after phase 3): the kernel
    against its plain version at gemma3-1b's attention shapes (G = 4 query
    heads on one KV head, D = 256, bf16, batch 2, S = 4096 causal, S = 4096
@@ -62,7 +69,10 @@ checks and every comparison launch fall outside those counts.  During the
 runs a seeded sample of the operands each kernel is given (a few per
 distinct padded shape and static arguments) is kept, and afterwards each
 sample goes through the kernel and its plain version again: bit for bit
-for the two integer kernels; for flash attention within a per-element
+for the two integer kernels (and a ``mandelbrot`` sample that reaches the
+plain version's cap, through the full-iteration build at the main path's
+own 5,000,000, bit for bit, each sample timed alone through both builds);
+for flash attention within a per-element
 bound as the model feeds it (bf16 v), and cast to float32 through the
 kernel's float32 build at the reference's 3e-5 / 1e-4.  Phases 3 and 6 check fixed shapes; this checks the main
 path's own.  The script imports nothing of the JAX reference package.  It
@@ -95,6 +105,10 @@ MS_DWELL = 5_000_000
 #: the plain dwell runs a sampled main-path launch at its own max_dwell
 #: only if every point escapes within this many iterations; else at this
 MS_SAMPLE_CAP = 4096
+#: main-path launches kept per distinct launch signature (shape, max_iter)
+MS_SAMPLES_PER_SHAPE = 16
+#: a mandelbrot launch longer than this counts as long (phase 5's profile)
+MS_LONG_MS = 1.0
 #: the full report goes here; the output directory of a chip call
 OUT_DIR = ROOT / "chiprun_out"
 
@@ -244,33 +258,115 @@ def phase_kernel_uts(dev) -> dict:
             "shape": f"parent [5, {n}] int32, child_ix [{n}] int32"}
 
 
-def phase_kernel_mandelbrot(dev) -> dict:
+def cycle_exit_run(c_re, c_im, max_iter: int, every: int) -> tuple:
+    """A plain PyTorch run of the kernel's schedule: the full iteration,
+    plus a comparison of the state with a saved one every ``every``
+    iterations, re-saved at iterations ``every * 2**k``, bit for bit.
+    Returns ``(dwell, iterations)``: the dwell map this schedule gives
+    (the cycle exit's claim is that it is the plain version's), and per
+    point the iterations the kernel runs: its dwell if it escapes, the
+    iteration at which the schedule proves its orbit periodic, else
+    ``max_iter``."""
     import torch
-    from repro_torch.kernels.mandelbrot.ops import mandelbrot_cuda
+    from repro_torch.kernels.mandelbrot.ref import _fma_f32
+    zr = torch.zeros_like(c_re)
+    zi = torch.zeros_like(c_im)
+    sr, si = zr.clone(), zi.clone()
+    dwell = torch.full(c_re.shape, max_iter, dtype=torch.int32,
+                       device=c_re.device)
+    iters = torch.full(c_re.shape, max_iter, dtype=torch.int64,
+                       device=c_re.device)
+    live = torch.ones(c_re.shape, dtype=torch.bool, device=c_re.device)
+    next_save = every
+    for it in range(max_iter):
+        zr2, zi2 = zr * zr, zi * zi
+        esc = live & ~(zr2 + zi2 <= 4.0)
+        dwell[esc] = it
+        iters[esc] = it
+        live &= ~esc
+        if not bool(live.any()):
+            break
+        new_re = (zr2 - zi2) + c_re
+        new_im = _fma_f32(2.0 * zr, zi, c_im)
+        zr = torch.where(live, new_re, zr)
+        zi = torch.where(live, new_im, zi)
+        i = it + 1
+        if i % every == 0:
+            same = live & (zr.view(torch.int32) == sr.view(torch.int32)) & \
+                (zi.view(torch.int32) == si.view(torch.int32))
+            iters[same] = i
+            live &= ~same
+            if i == next_save:
+                sr, si = zr.clone(), zi.clone()
+                next_save *= 2
+    return dwell, iters
+
+
+def time_in_turns(fns: dict, reps: int = 10) -> dict:
+    """CUDA-event medians of each of ``fns``, taken forward and then in
+    reverse order (a, b, .., b, a) and averaged, so that a drift of the
+    card's clock between the two passes falls on every entry alike."""
+    times = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            times[k].append(cuda_time_ms(fns[k], reps=reps))
+    return {k: sum(v) / len(v) for k, v in times.items()}
+
+
+def mandelbrot_builds(c_re, c_im, max_iter: int) -> dict:
+    """The kernel as the main path launches it, and its full-iteration
+    build (the cycle exit off), for measurement."""
+    from repro_torch.kernels.mandelbrot.ops import (
+        mandelbrot_cuda, mandelbrot_cuda_full_iteration)
+    return {"kernel": lambda: mandelbrot_cuda(c_re, c_im, max_iter=max_iter),
+            "full_iteration": lambda: mandelbrot_cuda_full_iteration(
+                c_re, c_im, max_iter=max_iter)}
+
+
+def phase_kernel_mandelbrot(dev) -> dict:
+    """At 1024^2 and max_iter 256 over the paper's view: every build
+    bit-equal to the plain version, and to the plain run of the kernel's
+    schedule, timed in turns.  The bound counts the iterations these
+    inputs need under the cycle exit (``cycle_exit_run``); the dwell sum,
+    the full iteration's count, stands beside it."""
+    import torch
+    from repro_torch.kernels.mandelbrot.ops import cycle_check_every
     from repro_torch.kernels.mandelbrot.ref import coords, mandelbrot_ref
 
     side, max_iter = 1024, 256
     c_re, c_im = coords(-2.0, -1.5, 1.0, 1.5, side, side, device=dev)
-    got = mandelbrot_cuda(c_re, c_im, max_iter=max_iter)
     want = mandelbrot_ref(c_re, c_im, max_iter)
-    torch.cuda.synchronize()
-    diff = int((got != want).sum())
-    err = int((got - want).abs().max())
-    if diff:
-        raise AssertionError(
-            f"mandelbrot: kernel differs from plain version on {diff} of "
-            f"{side * side} points (max |d dwell| {err})")
-    ms = cuda_time_ms(lambda: mandelbrot_cuda(c_re, c_im, max_iter=max_iter))
+    sched, iters = cycle_exit_run(c_re, c_im, max_iter, cycle_check_every())
+    builds = mandelbrot_builds(c_re, c_im, max_iter)
+    err = 0
+    for name, fn in [("schedule", lambda: sched), *builds.items()]:
+        got = fn()
+        torch.cuda.synchronize()
+        diff = int((got != want).sum())
+        err = max(err, int((got - want).abs().max()))
+        if diff:
+            raise AssertionError(
+                f"mandelbrot {name}: differs from plain version on {diff} "
+                f"of {side * side} points (max |d dwell| {err})")
+    times = time_in_turns(builds)
     plain_ms = cuda_time_ms(lambda: mandelbrot_ref(c_re, c_im, max_iter))
-    iters = int(got.sum())
-    b_ms, b_by = bound_ms(side * side * MS_BYTES_PER_POINT,
-                          iters * MS_OPS_PER_ITER)
-    log(f"[kernel] mandelbrot {side}x{side} max_iter {max_iter}: bit-equal "
-        f"to plain version; {iters} iterations; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    n_bytes = side * side * MS_BYTES_PER_POINT
+    needed = int(iters.sum())
+    dwell_sum = int(want.sum())
+    b_ms, b_by = bound_ms(n_bytes, needed * MS_OPS_PER_ITER)
+    full_b_ms, full_b_by = bound_ms(n_bytes, dwell_sum * MS_OPS_PER_ITER)
+    log(f"[kernel] mandelbrot {side}x{side} max_iter {max_iter}: every build "
+        f"and the plain run of the schedule bit-equal to the plain version; "
+        f"iterations needed {needed} (cycle exit), {dwell_sum} (dwell sum); "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+        + f"; plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), with "
+        f"the dwell sum {full_b_ms:.4f} ms ({full_b_by})")
     return {"name": "mandelbrot", "max_abs_err": err, "matched": True,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "ms": times["kernel"], "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
+            "full_iteration_ms": times["full_iteration"],
+            "bound_dwell_sum_ms": full_b_ms,
+            "iterations_needed": needed, "dwell_sum": dwell_sum,
             "shape": f"c_re, c_im [{side}, {side}] float32, "
                      f"max_iter {max_iter}"}
 
@@ -373,28 +469,66 @@ def check_uts_samples(tap: OperandTap) -> dict:
                                  for s, c in sorted(tap.seen.items())}}
 
 
+def duration_stats(ms: list) -> dict:
+    """Count, count over MS_LONG_MS, p50, p99 and max of launch times."""
+    import numpy as np
+    a = np.asarray(ms, dtype=np.float64)
+    if a.size == 0:
+        return {"count": 0}
+    return {"count": int(a.size), "over_1ms": int((a > MS_LONG_MS).sum()),
+            "p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99)), "max_ms": float(a.max()),
+            "sum_ms": float(a.sum())}
+
+
 def check_mandelbrot_samples(tap: OperandTap, cap: int) -> dict:
     """Every sampled ``mandelbrot`` launch of the main path, again through
-    the kernel and through its plain version on the card: bit-equal.
+    the kernel and through its plain version on the card: bit-equal; and
+    each timed alone through the kernel and its full-iteration build.
 
     The plain dwell syncs with the host once per iteration and stops when
     every point has escaped, so it cannot run an in-set point's 5,000,000
     iterations.  A sample whose points all escape within ``cap``
     iterations is compared at the main path's own ``max_iter``; any other
     (it reaches the set, or escapes late) is compared at ``max_iter`` =
-    ``cap``.  The kernel runs each sample at its own shape; the plain
+    ``cap``, and at its own ``max_iter`` with the full-iteration build,
+    bit for bit, which checks the cycle exit where the plain version
+    cannot go.  The kernel runs each sample at its own shape; the plain
     version, elementwise, runs one row of every sample of a class.
     """
+    import statistics as st
+
     import torch
-    from repro_torch.kernels.mandelbrot.ops import mandelbrot
+    from repro_torch.kernels.mandelbrot.ops import (
+        mandelbrot, mandelbrot_cuda_full_iteration)
     classes: dict = {}
+    timed = {"kernel": [], "full_iteration": []}
+    in_set = {"kernel": [], "full_iteration": []}
+    in_set_planes = []
+    n_full = 0
     for (shapes, static), kept in sorted(tap.samples.items()):
         max_iter = dict(static)["max_iter"]
         for c_re, c_im in kept:
-            got = mandelbrot(c_re, c_im, max_iter, backend="cuda")
-            it = max_iter if max_iter <= cap or int(got.max()) < cap else cap
+            got = dwell = mandelbrot(c_re, c_im, max_iter, backend="cuda")
+            top = int(got.max())
+            it = max_iter if max_iter <= cap or top < cap else cap
             if it != max_iter:
+                full = mandelbrot_cuda_full_iteration(c_re, c_im,
+                                                      max_iter=max_iter)
+                if not torch.equal(got, full):
+                    raise AssertionError(
+                        f"mandelbrot at main-path shape {shapes}, max_iter "
+                        f"{max_iter}: kernel differs from its full-iteration "
+                        f"build on {int((got != full).sum())} points")
                 got = mandelbrot(c_re, c_im, it, backend="cuda")
+                n_full += 1
+            for name, fn in mandelbrot_builds(c_re, c_im, max_iter).items():
+                t = cuda_time_ms(fn, reps=3, warmup=1)
+                timed[name].append(t)
+                if top == max_iter:
+                    in_set[name].append(t)
+            if top == max_iter:
+                in_set_planes.append((c_re, c_im, dwell))
             cls = classes.setdefault(it, ([], [], [], []))
             for lst, t in zip(cls, (c_re, c_im, got)):
                 lst.append(t.reshape(-1))
@@ -416,7 +550,97 @@ def check_mandelbrot_samples(tap: OperandTap, cap: int) -> dict:
         log(f"[ms] {len(shapes)} sampled main-path launches at max_iter "
             f"{it} ({got.numel()} points, shapes {out[str(it)]['shapes']}) "
             f"bit-equal to the plain version")
+    if not in_set["kernel"]:
+        raise AssertionError("no sampled main-path launch reaches the set")
+    log(f"[ms] {n_full} sampled launches that reach max_iter {cap} also "
+        f"bit-equal to the full-iteration build at their own max_iter")
+    med = {k: st.median(v) for k, v in in_set.items()}
+    bounds = in_set_bounds(in_set_planes, cap)
+    med_bound = {k: st.median(v) for k, v in bounds.items()}
+    out["launch_ms"] = {k: duration_stats(v) for k, v in timed.items()}
+    out["in_set"] = {"samples": len(in_set["kernel"]),
+                     "median_ms": med, "speedup": med["full_iteration"] /
+                     med["kernel"], "median_bound_ms": med_bound,
+                     "kernel_ms": in_set["kernel"],
+                     "full_iteration_ms": in_set["full_iteration"],
+                     "bound_ms": bounds}
+    for k, v in out["launch_ms"].items():
+        log(f"[ms] sampled launches, each alone, {k}: {v}")
+    log(f"[ms] {len(in_set['kernel'])} sampled in-set launches: median "
+        f"kernel {med['kernel']:.4f} ms, full iteration "
+        f"{med['full_iteration']:.4f} ms ({out['in_set']['speedup']:.1f}x); "
+        f"median bound {med_bound['kernel']:.5f} ms (cycle exit, to "
+        f"{cap}), {med_bound['full_iteration']:.5f} ms (dwell sum)")
     return out
+
+
+def in_set_bounds(planes: list, cap: int) -> dict:
+    """The bound of each in-set sample (its padded plane and its dwells at
+    the main path's max_iter) for both builds: 12 bytes a point against
+    8 operations an iteration, counting for the full iteration every
+    dwell, and for the kernel what a plain run of its schedule to ``cap``
+    needs (points still running at ``cap`` counted at ``cap``, so this
+    bound is lower still than the kernel's work)."""
+    import torch
+    from repro_torch.kernels.mandelbrot.ops import cycle_check_every
+    res = torch.cat([p[0].reshape(-1) for p in planes])[None]
+    ims = torch.cat([p[1].reshape(-1) for p in planes])[None]
+    _, iters = cycle_exit_run(res, ims, cap, cycle_check_every())
+    out = {"kernel": [], "full_iteration": []}
+    off = 0
+    for _, _, dwell in planes:
+        n = dwell.numel()
+        out["kernel"].append(bound_ms(n * MS_BYTES_PER_POINT, int(
+            iters[0, off:off + n].sum()) * MS_OPS_PER_ITER)[0])
+        out["full_iteration"].append(bound_ms(n * MS_BYTES_PER_POINT, int(
+            dwell.to(torch.int64).sum()) * MS_OPS_PER_ITER)[0])
+        off += n
+    return out
+
+
+def device_timeline(fn) -> tuple:
+    """Run ``fn`` once under ``torch.profiler`` (device activity only, so
+    the host's own pace is disturbed least) and read the device's
+    timeline: its idle share of the wall time (the union of every kernel,
+    copy and fill, so that work on concurrent streams counts once), the
+    durations of every ``mandelbrot`` launch, and the share of the wall
+    time during which at least one launch longer than ``MS_LONG_MS`` ran.
+    Returns ``(fn's result, the record)``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def union_us(spans) -> float:
+        total, end = 0.0, float("-inf")
+        for a, b in sorted(spans):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    # the profiler's raw device records: building its per-event objects
+    # and their tree would take about a minute for one run's ~10^5 records
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    spans = [(e.start_ns() / 1e3, e.end_ns() / 1e3) for e in events]
+    dwell = [s for s, e in zip(spans, events) if "dwell_" in e.name()]
+    long = [(a, b) for a, b in dwell if b - a > MS_LONG_MS * 1e3]
+    wall_us = wall * 1e6
+    rec = {"wall_s": wall, "device_ops": len(spans),
+           "busy_s": union_us(spans) / 1e6,
+           "idle_share": 1 - union_us(spans) / wall_us,
+           "launches": duration_stats([(b - a) / 1e3 for a, b in dwell]),
+           "long_launch_union_s": union_us(long) / 1e6,
+           "long_launch_share": union_us(long) / wall_us}
+    if not dwell:
+        raise AssertionError("the profiler saw no mandelbrot launch")
+    return out, rec
 
 
 def phase_uts(dev, depth: int) -> dict:
@@ -534,7 +758,7 @@ def phase_ms(dev, side: int, max_dwell: int) -> dict:
         return go
 
     runs, images = {}, {}
-    with OperandTap("mandelbrot", k=4) as tap:
+    with OperandTap("mandelbrot", k=MS_SAMPLES_PER_SHAPE) as tap:
         for batching in (False, True):
             name = f"elastic batching={batching}"
             r, wall, n = run_path(f"MS {name}", "mandelbrot",
@@ -552,6 +776,16 @@ def phase_ms(dev, side: int, max_dwell: int) -> dict:
                 f"{r.output['filled']}, evaluated {r.output['evaluated']}, "
                 f"{n} mandelbrot launches")
     samples = check_mandelbrot_samples(tap, MS_SAMPLE_CAP)
+    # where the time of one run goes: the same run once more (batching
+    # off), under the profiler, outside the counted runs above
+    r, prof = device_timeline(elastic(False))
+    images["profiled"] = r.output["image"]
+    log(f"[ms] profiled run (batching off): {prof['wall_s']:.3f} s wall, "
+        f"{prof['device_ops']} device operations, busy {prof['busy_s']:.3f} "
+        f"s, idle share {prof['idle_share']:.4f}; mandelbrot launches "
+        f"{prof['launches']}; launches over {MS_LONG_MS} ms run during "
+        f"{prof['long_launch_union_s']:.3f} s ({prof['long_launch_share']:.4f}"
+        f" of the wall time)")
     torch.cuda.synchronize()
     t0 = time.monotonic()
     oracle = naive_render(p, device=dev)
@@ -572,16 +806,21 @@ def phase_ms(dev, side: int, max_dwell: int) -> dict:
     return {"launches": {k: r["launches"] for k, r in runs.items()},
             "side": side, "max_dwell": max_dwell,
             "naive_render_s": naive_s, "pixels_off_naive": sampled,
-            "reference_tasks": tasks, "runs": runs, "samples": samples}
+            "reference_tasks": tasks, "runs": runs, "samples": samples,
+            "profile": prof}
 
 
 def phase_ms_paper_size(dev) -> dict:
     """What the paper's full ``MS_PAPER_SD64`` run would be: its dwell map
     by ``naive_render`` on the card, and the tasks Mariani-Silver over it
-    dispatches, which is why phase 5 runs a smaller image."""
+    dispatches, which is why phase 5 runs a smaller image.  Then the same
+    plane's coordinates through every build of the kernel once (CUDA
+    events; the full iteration takes seconds), each dwell map bit-equal
+    to the render's."""
     import numpy as np
     import torch
     from repro_torch.algorithms import naive_render
+    from repro_torch.algorithms.mariani_silver import Rect, _pixel_coords
     from repro_torch.configs.paper_workloads import MS_PAPER_SD64
 
     p = MS_PAPER_SD64
@@ -596,8 +835,26 @@ def phase_ms_paper_size(dev) -> dict:
         f"{int(dwells.astype(np.int64).sum())} iterations; Mariani-Silver "
         f"over it: {tasks} tasks, {sampled} pixels filled with another "
         f"dwell than theirs")
+    c_re, c_im = (torch.from_numpy(a).to(dev) for a in _pixel_coords(
+        Rect(0, 0, p.width, p.height, 0), p))
+    want = torch.from_numpy(dwells).to(dev)
+    builds_ms = {}
+    for name, fn in mandelbrot_builds(c_re, c_im, p.max_dwell).items():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = fn()
+        end.record()
+        end.synchronize()
+        builds_ms[name] = start.elapsed_time(end)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"mandelbrot {name} at paper size differs from naive_render "
+                f"on {int((got != want).sum())} points")
+    log(f"[ms] paper size, kernel alone: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in builds_ms.items()))
     return {"naive_render_s": naive_s, "tasks": tasks,
-            "pixels_off_naive": sampled}
+            "pixels_off_naive": sampled, "builds_ms": builds_ms}
 
 
 # -- the model slice: gemma3-1b prefill, decode and serving ----------------------
@@ -1120,6 +1377,10 @@ def main() -> int:
     # hand kernel
     kernels["uts_hash"]["launches_by_path"] = uts["launches"]
     kernels["mandelbrot"]["launches_by_path"] = ms["launches"]
+    # and at the main path's in-set shapes (max_iter 5,000,000), both builds
+    kernels["mandelbrot"]["in_set_main_path"] = {
+        k: ms["samples"]["in_set"][k] for k in ("samples", "median_ms",
+                                                "speedup", "median_bound_ms")}
     # the flash line is measured on the prefill's own operands: a global
     # (causal, S = 32,768) layer, with the local (window 512) one beside it
     glob, loc = (model["main_path_operands"][k] for k in ("global", "local"))
@@ -1145,8 +1406,9 @@ def main() -> int:
                 "matched": k["matched"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
-               | ({"local_layer": k["local_layer"]} if "local_layer" in k
-                  else {})
+               | {x: k[x] for x in ("local_layer", "full_iteration_ms",
+                                    "bound_dwell_sum_ms", "in_set_main_path")
+                  if x in k}
                for name, k in kernels.items()]
     report = {"card": card, "device": torch.cuda.get_device_name(0),
               "seconds": time.monotonic() - t_start, "build": build,

@@ -5,7 +5,9 @@ PyTorch SHA-1 against hashlib, the numpy implementation and the JAX
 dwell.  Every comparison is bit-exact.  The two tests marked ``cuda``
 hold the hand kernels against the plain versions and need the card."""
 import hashlib
+import importlib.util
 from fractions import Fraction
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +21,10 @@ from repro.kernels.uts_hash.numpy_impl import (geometric_children_np,
 from repro.kernels.uts_hash.ops import root_digest as jax_root_digest
 from repro.kernels.uts_hash.ops import uts_child_digests as jax_digests
 from repro_torch.kernels import _build
-from repro_torch.kernels.mandelbrot.ops import mandelbrot, mandelbrot_cuda
+from repro_torch.algorithms.mariani_silver import (MSParams, Rect,
+                                                   _border_coords)
+from repro_torch.kernels.mandelbrot.ops import (mandelbrot, mandelbrot_cuda,
+                                                mandelbrot_cuda_full_iteration)
 from repro_torch.kernels.mandelbrot.ref import (_fma_f32, coords,
                                                 mandelbrot_ref)
 from repro_torch.kernels.uts_hash.ops import uts_child_digests, uts_hash_cuda
@@ -247,6 +252,126 @@ def test_mandelbrot_cuda_wrapper_rejects_cpu_tensors():
         mandelbrot_cuda(torch.zeros((2, 2)), torch.zeros((2, 2)), max_iter=4)
 
 
+def test_full_iteration_wrapper_rejects_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mandelbrot_cuda_full_iteration(torch.zeros((2, 2)),
+                                       torch.zeros((2, 2)), max_iter=4)
+
+
+#: interior-heavy zooms (x0, y0, x1, y1): the main cardioid with its cusp
+#: and the period-2 bulb with its rim, where most points never escape
+_ZOOMS = {"cardioid": (-0.6, -0.5, 0.3, 0.5),
+          "period-2 bulb": (-1.3, -0.3, -0.7, 0.3)}
+#: the cap of the in-set checks: orbits close within a few hundred
+#: iterations here, so the cycle exit is exercised well before it
+_IN_SET_ITER = 4096
+
+
+def _zoom(name, side=24):
+    return tuple(t.numpy() for t in coords(*_ZOOMS[name], side, side,
+                                          device=CPU))
+
+
+def _signed_zero_planes():
+    """A plane whose coordinates take -0.0 and +0.0 (as bit patterns) in
+    both parts, beside c = -2 (its orbit sits at |z|^2 = 4 exactly), the
+    cusp 0.25 and points inside and outside the set."""
+    xs = np.array([-0.0, 0.0, -2.0, -1.0, -0.75, 0.25, -0.1, 0.5],
+                  np.float32)
+    ys = np.array([-0.0, 0.0, 0.5, -0.5, 0.1, -0.1, 1.0, -0.0], np.float32)
+    cim, cre = np.meshgrid(ys, xs, indexing="ij")
+    return np.ascontiguousarray(cre), np.ascontiguousarray(cim)
+
+
+_IN_SET_PLANES = {"cardioid": lambda: _zoom("cardioid"),
+                  "period-2 bulb": lambda: _zoom("period-2 bulb"),
+                  "signed zeros": _signed_zero_planes}
+
+
+def _jax_dwell(cre, cim, max_iter):
+    return np.asarray(jax_mandelbrot(jnp.asarray(cre), jnp.asarray(cim),
+                                     max_iter, backend="ref"))
+
+
+@pytest.mark.parametrize("zoom", sorted(_ZOOMS))
+def test_dwell_matches_jax_ref_on_interior_heavy_zooms(zoom):
+    cre, cim = _zoom(zoom)
+    want = _jax_dwell(cre, cim, _IN_SET_ITER)
+    assert (want == _IN_SET_ITER).mean() > 0.5
+    got = mandelbrot(torch.from_numpy(cre.copy()),
+                     torch.from_numpy(cim.copy()), _IN_SET_ITER)
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_dwell_matches_jax_ref_with_signed_zeros():
+    cre, cim = _signed_zero_planes()
+    assert np.signbit(cre).any() and np.signbit(cim).any()
+    want = _jax_dwell(cre, cim, _IN_SET_ITER)
+    got = mandelbrot_ref(torch.from_numpy(cre), torch.from_numpy(cim),
+                         _IN_SET_ITER)
+    assert np.array_equal(got.numpy(), want)
+
+
+#: pixels (x, y) of the paper's view at 512 x 512 whose dwells run from
+#: about 2,000 to 45,000: points near the boundary that escape late
+_LATE_ESCAPES = [(403, 195), (191, 218), (235, 188), (157, 214), (253, 153),
+                 (290, 146), (307, 139), (302, 146), (213, 249), (402, 236),
+                 (105, 253), (284, 151), (249, 156), (202, 227), (311, 145),
+                 (277, 154), (212, 247), (199, 224), (191, 217), (231, 185),
+                 (324, 113), (198, 222), (363, 155), (328, 145), (304, 133),
+                 (405, 222)]
+
+
+def _paper_pixels(pixels):
+    p = MSParams(width=512, height=512)
+    sx, sy = (p.x1 - p.x0) / p.width, (p.y1 - p.y0) / p.height
+    cre = np.array([[p.x0 + (x + 0.5) * sx for x, _ in pixels]], np.float32)
+    cim = np.array([[p.y0 + (y + 0.5) * sy for _, y in pixels]], np.float32)
+    return cre, cim
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_cycle_exit_schedule_keeps_late_escapes():
+    """Boundary points of the paper's view that escape after 2,000 to
+    45,000 iterations: the plain version and the plain run of the
+    kernel's schedule both give the JAX reference's dwells (no orbit of
+    an escaping point is taken for a cycle)."""
+    cre, cim = _paper_pixels(_LATE_ESCAPES)
+    want = _jax_dwell(cre, cim, 50_000)
+    assert want.min() >= 2000 and want.max() < 50_000
+    got = mandelbrot_ref(torch.from_numpy(cre), torch.from_numpy(cim), 50_000)
+    assert np.array_equal(got.numpy(), want)
+    dwell, _ = _chip_smoke().cycle_exit_run(
+        torch.from_numpy(cre), torch.from_numpy(cim), 50_000, 8)
+    assert np.array_equal(dwell.numpy(), want)
+
+
+@pytest.mark.parametrize("plane", sorted(_IN_SET_PLANES))
+def test_cycle_exit_schedule_keeps_every_dwell(plane):
+    """The kernel's cycle exit, run as plain PyTorch (``chip_smoke.py``'s
+    ``cycle_exit_run``, checks every 8 iterations, saves at 8 * 2**k):
+    its dwell map is the JAX reference's, bit for bit, and it proves the
+    in-set points periodic long before the cap."""
+    cre, cim = _IN_SET_PLANES[plane]()
+    want = _jax_dwell(cre, cim, _IN_SET_ITER)
+    dwell, iters = _chip_smoke().cycle_exit_run(
+        torch.from_numpy(cre.copy()), torch.from_numpy(cim.copy()),
+        _IN_SET_ITER, 8)
+    assert np.array_equal(dwell.numpy(), want)
+    in_set = want == _IN_SET_ITER
+    assert in_set.any()
+    assert np.median(iters.numpy()[in_set]) < _IN_SET_ITER / 8
+    escaped = ~in_set
+    assert np.array_equal(iters.numpy()[escaped], want[escaped])
+
+
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     """No compiler, no kernel: the build raises instead of falling back."""
     monkeypatch.setattr(_build, "_build_dir", lambda: tmp_path)
@@ -276,3 +401,43 @@ def test_mandelbrot_kernel_matches_plain_on_card(cuda_device):
                 for a in _planes((256, 256)))
     assert torch.equal(mandelbrot_cuda(cre, cim, max_iter=512),
                        mandelbrot_ref(cre, cim, 512))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", sorted(_IN_SET_PLANES))
+def test_mandelbrot_kernel_in_set_planes_on_card(cuda_device, plane):
+    """The interior-heavy zooms and the signed zeros, with the cycle exit
+    on and off: the plain version's dwells."""
+    cre, cim = (torch.from_numpy(a.copy()).to(cuda_device)
+                for a in _IN_SET_PLANES[plane]())
+    want = mandelbrot_ref(cre, cim, _IN_SET_ITER)
+    assert torch.equal(mandelbrot_cuda(cre, cim, max_iter=_IN_SET_ITER), want)
+    assert torch.equal(mandelbrot_cuda_full_iteration(
+        cre, cim, max_iter=_IN_SET_ITER), want)
+
+
+@pytest.mark.cuda
+def test_mandelbrot_kernel_late_escapes_on_card(cuda_device):
+    """Boundary points that escape after 2,000 to 45,000 iterations: the
+    cycle exit must not stop any of them early."""
+    cre, cim = (torch.from_numpy(a).to(cuda_device)
+                for a in _paper_pixels(_LATE_ESCAPES))
+    want = mandelbrot_ref(cre, cim, 50_000)
+    assert int(want.min()) >= 2000 and int(want.max()) < 50_000
+    assert torch.equal(mandelbrot_cuda(cre, cim, max_iter=50_000), want)
+
+
+@pytest.mark.cuda
+def test_mandelbrot_kernel_in_set_strip_at_paper_dwell_on_card(cuda_device):
+    """A 28-point border strip (an 8 x 8 rectangle inside the main
+    cardioid) at the paper's 5,000,000: the cycle exit against the full
+    iteration, bit for bit."""
+    p = MSParams(width=512, height=512, max_dwell=5_000_000)
+    bre, bim = _border_coords(Rect(300, 240, 308, 248, 3), p)
+    cre, cim = (torch.from_numpy(a[None, :].copy()).to(cuda_device)
+                for a in (bre, bim))
+    assert cre.shape == (1, 28)
+    got = mandelbrot_cuda(cre, cim, max_iter=p.max_dwell)
+    assert torch.equal(got, mandelbrot_cuda_full_iteration(
+        cre, cim, max_iter=p.max_dwell))
+    assert bool((got == p.max_dwell).all())

@@ -9,17 +9,31 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 2. build: compiles every CUDA kernel of the port from ``src/repro_torch/
    kernels/csrc`` with ``nvcc`` (one process per source, all at once), and
    fails unless the flash library's machine code holds tensor-core
-   instructions (``cuobjdump -sass``: HGMMA and FFMA counted);
+   instructions (``cuobjdump -sass``: HGMMA and FFMA counted); counts the
+   SHA-1 body's instructions in the UTS library's machine code by the
+   pipe that runs them, and reads the card's top SM clock, for the
+   integer bound of both UTS kernels;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, bit-equal, with CUDA-event times (median of 10 runs) and the least
    time the card could take for the same work; ``mandelbrot`` also through
    its full-iteration build (the cycle exit off), timed in turns with the
    kernel, and through a plain run of the kernel's cycle-exit schedule,
    which counts the iterations its bound holds these inputs to;
+   ``uts_expand`` (a whole task's traversal in one cooperative launch) on
+   full trees of depths 8, 9 and 10, on a 50,000-node task from a depth-14
+   frontier, and on the same task at a capacity that forces relaunches;
+   then the depth-14 tree alone through the kernel (generations, time per
+   generation), and a bag of 4,194,304 leaves, whose generations hash
+   nothing (the scan and the grid barrier alone);
 4. UTS main path: ``uts_sequential`` for depths 4..10 against the published
    tree sizes, then the paper's Table 1 first row (seed 19, b0 4, depth 14)
    through ``uts_sequential`` and through ``run_irregular`` on the elastic
-   pool with and without batching; the three counts must agree;
+   pool with and without batching; the three counts must agree; each path
+   must launch ``uts_expand`` (at most 5 times on the sequential one, at
+   most once per task on the elastic ones, relaunches aside) and
+   ``uts_hash`` (the root digest); then one more elastic run (batching
+   off) under ``torch.profiler``: the device's idle share and every
+   ``uts_expand`` launch's duration;
 5. Mariani-Silver main path: the paper's sd-64 geometry (64-pixel seed
    rectangles, depth 5, split 2, max dwell 5,000,000) on a 512x512 image
    (the paper's is 4096x4096: some 500,000 tasks, which the host-bound
@@ -67,9 +81,12 @@ reference leaves it to XLA, and the batcher's prefill only counts
 tokens); their flash launches are read and reported, 0.  The depth 4..10
 checks and every comparison launch fall outside those counts.  During the
 runs a seeded sample of the operands each kernel is given (a few per
-distinct padded shape and static arguments) is kept, and afterwards each
+distinct padded shape and static arguments; for ``uts_expand``, per
+power-of-two bag size and budget) is kept, and afterwards each
 sample goes through the kernel and its plain version again: bit for bit
-for the two integer kernels (and a ``mandelbrot`` sample that reaches the
+for the integer kernels (a ``uts_expand`` sample with a budget over
+``UTS_REPLAY_ITERS`` nodes, the sequential path's whole tree, is replayed
+with that budget; and a ``mandelbrot`` sample that reaches the
 plain version's cap, through the full-iteration build at the main path's
 own 5,000,000, bit for bit, each sample timed alone through both builds);
 for flash attention within a per-element
@@ -113,17 +130,33 @@ MS_LONG_MS = 1.0
 OUT_DIR = ROOT / "chiprun_out"
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes/s and the
-#: float32 rate outside the tensor cores.  The card has no published int32
-#: ALU rate; integer operations are held against the float32 rate, which is
-#: higher than the int32 issue rate, so their bound is a lower bound too.
+#: float32 rate outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+#: dispatch rates per SM and clock (lanes): one warp instruction a clock on
+#: each of the 4 sub-partitions, the INT32 pipe's 64 lanes, the FMA pipe
+#: (which also runs IMAD) 128; the UTS kernels' integer bound
+#: (``int_bound_ms``) divides their SHA-1 body's instructions by these
+DISPATCH_LANES = 128
+INT_LANES = 64
+FMA_LANES = 128
 
 #: 32-bit operations per SHA-1 lane: 64 schedule words (3 xor + 1 rotate),
 #: 80 rounds (2 rotates, 4 adds, a 2-operation boolean function on average
-#: counting lop3 as one), 5 final adds
+#: counting lop3 as one), 5 final adds.  Held against PEAK_OPS_S, a float32
+#: rate that counts an FMA as two, this is the loose bound of the UTS
+#: kernels (``bound_loose_ms``): the card has half as many INT32 lanes.
 UTS_OPS_PER_LANE = 64 * 4 + 80 * 8 + 5
 UTS_BYTES_PER_LANE = 44           # 20 B parent + 4 B index in, 20 B out
+UTS_BYTES_PER_NODE = 24           # a digest and a depth
+#: the published tree sizes above and the depth-14 tree
+UTS_DEPTH14_NODES = 117_669_204
+#: a sampled main-path ``uts_expand`` call is replayed through both
+#: versions with at most this budget (the plain version takes some 8 ms a
+#: generation of 8,192 nodes on the card)
+UTS_REPLAY_ITERS = 400_000
+#: uts_expand calls kept per (bag size bucket, budget bucket)
+UTS_SAMPLES_PER_KEY = 2
 #: float32 operations per dwell iteration: 3 mul, 3 add/sub, 1 fma (2)
 MS_OPS_PER_ITER = 8
 MS_BYTES_PER_POINT = 12           # two float32 in, one int32 out
@@ -131,6 +164,8 @@ MS_BYTES_PER_POINT = 12           # two float32 in, one int32 out
 KERNEL_SOURCES = {
     "uts_hash": ("src/repro_torch/kernels/csrc/uts_hash.cu",
                  "src/repro/kernels/uts_hash/kernel.py:96"),
+    "uts_expand": ("src/repro_torch/kernels/csrc/uts_hash.cu",
+                   "src/repro/kernels/uts_hash/kernel.py:96"),
     "mandelbrot": ("src/repro_torch/kernels/csrc/mandelbrot.cu",
                    "src/repro/kernels/mandelbrot/kernel.py:74"),
     "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -166,6 +201,42 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple:
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+def int_bound_ms(n_bytes: float, lanes: float, sha1: dict) -> tuple:
+    """Least time for ``lanes`` SHA-1 compressions against ``n_bytes``:
+    the instructions of the compiled body (``sass_pipes``) at the dispatch
+    rate of the pipes that run them, which work side by side (so the
+    busiest bounds), on every SM at the top SM clock."""
+    per_lane = max(sha1["int"] / INT_LANES, sha1["fma"] / FMA_LANES,
+                   sha1["all"] / DISPATCH_LANES)
+    t_ops = lanes * per_lane / (sha1["sms"] * sha1["sm_clock_hz"]) * 1e3
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+#: SASS opcodes that go to no arithmetic pipe (memory, control, the
+#: uniform datapath's U* instructions are matched by prefix)
+_NOT_ALU = {"LDG", "STG", "LDS", "STS", "LD", "ST", "LDC", "ATOM", "ATOMG",
+            "ATOMS", "RED", "BRA", "BRX", "JMP", "EXIT", "RET", "CALL", "BAR",
+            "BSSY", "BSYNC", "WARPSYNC", "NOP", "YIELD", "S2R", "S2UR", "CS2R",
+            "MEMBAR", "ERRBAR", "CCTL", "DEPBAR", "BPT", "SHFL", "VOTE"}
+
+
+def sass_pipes(sass: str, kernel: str) -> dict:
+    """Instructions of one kernel in a ``cuobjdump -sass`` listing, per
+    lane (it is straight-line code): all of them, those on the FMA pipe
+    (IMAD in every form, FFMA, FADD, FMUL), and the other arithmetic and
+    logic ones, on the INT32 pipe."""
+    fns = re.split(r"\n\s*Function : ", sass)
+    body = [f for f in fns[1:] if kernel in f.split("\n", 1)[0]]
+    if len(body) != 1:
+        raise AssertionError(f"{kernel}: {len(body)} functions in the SASS")
+    ops = [m.split(".")[0] for m in re.findall(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body[0])]
+    fma = sum(o == "IMAD" or o in ("FFMA", "FADD", "FMUL") for o in ops)
+    other = sum(o in _NOT_ALU or o.startswith("U") for o in ops)
+    return {"all": len(ops), "fma": fma, "int": len(ops) - fma - other}
+
+
 def phase_environment() -> str:
     import torch
     smi = subprocess.run(
@@ -181,11 +252,15 @@ def phase_environment() -> str:
 
 
 def phase_build() -> dict:
-    """Builds every kernel, then reads the flash library's machine code:
-    its products must be tensor-core instructions (HGMMA, Hopper's wgmma),
-    and the FFMA count (the CUDA cores' fused multiply-adds, which the
-    softmax and the float32 splits still use) stands beside it."""
+    """Builds every kernel, then reads the machine code: the UTS library's
+    SHA-1 body by pipe (``sass_pipes``) and the card's top SM clock, for
+    the UTS kernels' integer bound; the flash library's products must be
+    tensor-core instructions (HGMMA, Hopper's wgmma), and the FFMA count
+    (the CUDA cores' fused multiply-adds, which the softmax and the
+    float32 splits still use) stands beside it."""
     import shutil
+
+    import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.ops import kernel_tiles
     t0 = time.monotonic()
@@ -197,10 +272,27 @@ def phase_build() -> dict:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass",
-                           str(_build._target("flash_attention"))],
-                          capture_output=True, text=True, timeout=300,
-                          check=True).stdout
+
+    def disassemble(name: str) -> str:
+        return subprocess.run([cuobjdump, "-sass", str(_build._target(name))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+
+    uts_sass = disassemble("uts_hash")
+    sha1 = sass_pipes(uts_sass, "uts_hash_kernel")
+    if "uts_expand_kernel" not in uts_sass:
+        raise AssertionError("uts_expand_kernel missing from the UTS library")
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    sha1["sm_clock_hz"] = float(clock.stdout.split()[0]) * 1e6
+    sha1["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[build] uts_hash_kernel SASS (the SHA-1 body, per lane): "
+        f"{sha1['all']} instructions, {sha1['int']} on the INT32 pipe, "
+        f"{sha1['fma']} on the FMA pipe; {sha1['sms']} SMs at up to "
+        f"{sha1['sm_clock_hz'] / 1e6:.0f} MHz")
+    sass = disassemble("flash_attention")
     counts = {op: len(re.findall(rf"\b{op}[.\s]", sass))
               for op in ("HGMMA", "FFMA")}
     tiles = kernel_tiles()
@@ -210,7 +302,8 @@ def phase_build() -> dict:
     if counts["HGMMA"] == 0:
         raise AssertionError("flash_attention: no HGMMA in its machine code; "
                              "its products are not on the tensor cores")
-    return {"flash_sass": counts, "flash_tiles": list(tiles)}
+    return {"flash_sass": counts, "flash_tiles": list(tiles),
+            "sha1_sass": sha1}
 
 
 def _hashlib_digest(parent: list, ix: int) -> list:
@@ -219,7 +312,7 @@ def _hashlib_digest(parent: list, ix: int) -> list:
     return [int.from_bytes(dig[4 * i:4 * i + 4], "big") for i in range(5)]
 
 
-def phase_kernel_uts(dev) -> dict:
+def phase_kernel_uts(dev, sha1: dict) -> dict:
     import numpy as np
     import torch
     from repro_torch.kernels.uts_hash.ops import uts_hash_cuda
@@ -248,14 +341,168 @@ def phase_kernel_uts(dev) -> dict:
             raise AssertionError(f"uts_hash: lane {j} differs from hashlib")
     ms = cuda_time_ms(lambda: uts_hash_cuda(par, ix))
     plain_ms = cuda_time_ms(lambda: uts_child_digests_ref(par, ix))
-    b_ms, b_by = bound_ms(n * UTS_BYTES_PER_LANE, n * UTS_OPS_PER_LANE)
+    b_ms, b_by = int_bound_ms(n * UTS_BYTES_PER_LANE, n, sha1)
+    loose_ms, _ = bound_ms(n * UTS_BYTES_PER_LANE, n * UTS_OPS_PER_LANE)
     log(f"[kernel] uts_hash N={n}: bit-equal to plain version and hashlib "
         f"(1000 lanes); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by})")
+        f"{b_ms:.4f} ms ({b_by}; the loose float32-rate bound "
+        f"{loose_ms:.4f} ms)")
     return {"name": "uts_hash", "max_abs_err": err, "matched": True,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
+            "bound_by": b_by, "bound_loose_ms": loose_ms, "library_ms": None,
             "shape": f"parent [5, {n}] int32, child_ix [{n}] int32"}
+
+
+def expand_bounds(s0: int, count: int, s_final: int, sha1: dict) -> dict:
+    """The least time of one ``uts_expand`` call that expands ``count``
+    nodes of a bag of ``s0`` and leaves ``s_final``: it hashes
+    ``s_final - s0 + count`` children, reads the bag once and writes the
+    leftover once (24 B a node); the integer bound (``int_bound_ms``) and
+    the loose float32-rate one.  Beside them, the time the design's own
+    stack traffic takes at the memory rate: every expanded node read as a
+    parent and every child written, 24 B each."""
+    children = s_final - s0 + count
+    n_bytes = (s0 + s_final) * UTS_BYTES_PER_NODE
+    b_ms, b_by = int_bound_ms(n_bytes, children, sha1)
+    loose_ms, _ = bound_ms(n_bytes, children * UTS_OPS_PER_LANE)
+    stack_ms = (count + children) * UTS_BYTES_PER_NODE / PEAK_BYTES_S * 1e3
+    return {"children": children, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_loose_ms": loose_ms, "stack_traffic_ms": stack_ms}
+
+
+def expand_both(dig, dep, iters: int, capacity=None, **kw) -> dict:
+    """One ``uts_expand`` call through the kernel (at ``capacity``) and
+    through the plain version (uncapped): bit for bit on the count, the
+    leftover digests and depths.  Returns the kernel's result, launches
+    and generations."""
+    import torch
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.uts_hash.ops import (expand_generations,
+                                                  reset_expand_generations,
+                                                  uts_expand)
+    before = launches("uts_expand")
+    reset_expand_generations()
+    got = uts_expand(dig, dep, iters, capacity=capacity, backend="cuda", **kw)
+    n_launch = launches("uts_expand") - before
+    gens = expand_generations()
+    want = uts_expand(dig, dep, iters, backend="ref", **kw)
+    torch.cuda.synchronize()
+    if got[0] != want[0] or not (torch.equal(got[1], want[1]) and
+                                 torch.equal(got[2], want[2])):
+        raise AssertionError(
+            f"uts_expand ({dep.shape[0]} nodes, budget {iters}, {kw}, "
+            f"capacity {capacity}): kernel ({got[0]} nodes, "
+            f"{got[2].shape[0]} left) differs from the plain version "
+            f"({want[0]}, {want[2].shape[0]})")
+    return {"count": got[0], "left": int(got[2].shape[0]),
+            "launches": n_launch, "generations": gens, "result": got}
+
+
+def phase_kernel_uts_expand(dev, sha1: dict) -> dict:
+    """``uts_expand`` against its plain version on the card, bit for bit:
+    the whole trees of depths 8, 9 and 10 from the root; a 50,000-node
+    task (the elastic path's budget) from a depth-14 frontier that the
+    plain version has made (10,000 nodes in), at chunk 8192; the same task
+    at the least capacity, which must relaunch at least 3 times.  Kernel
+    and plain times of the task and of depth 10; then the depth-14 tree
+    through the kernel alone (time, generations, time per generation),
+    and a bag of leaves, whose generations hash nothing."""
+    import torch
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.uts_hash.ops import (expand_generations,
+                                                  reset_expand_generations,
+                                                  root_digest, uts_expand)
+    root = (root_digest(19, dev), torch.zeros(1, dtype=torch.int32,
+                                              device=dev))
+    cases = {}
+    for depth in (8, 9, 10):
+        r = expand_both(*root, 2**62, b0=4.0, max_depth=depth, chunk=8192)
+        if r["count"] != UTS_SIZES[depth] or r["left"]:
+            raise AssertionError(f"uts_expand depth {depth}: {r['count']} "
+                                 f"nodes, {r['left']} left")
+        cases[f"depth {depth}"] = r
+    task = dict(b0=4.0, max_depth=UTS_DEPTH, chunk=8192)
+    _, fdig, fdep = uts_expand(*root, 10_000, backend="ref", **task)
+    cases["task"] = expand_both(fdig, fdep, 50_000, **task)
+    cases["task, least capacity"] = r = expand_both(fdig, fdep, 50_000,
+                                                    capacity=1, **task)
+    if r["launches"] < 4:
+        raise AssertionError(f"uts_expand at the least capacity: "
+                             f"{r['launches']} launches, want >= 4")
+    for name, (dig, dep, iters, kw) in {
+            "depth 10": (*root, 2**62, dict(b0=4.0, max_depth=10,
+                                            chunk=8192)),
+            "task": (fdig, fdep, 50_000, task)}.items():
+        c = cases[name]
+        c["ms"] = cuda_time_ms(lambda: uts_expand(dig, dep, iters,
+                                                  backend="cuda", **kw))
+        c["plain_ms"] = cuda_time_ms(lambda: uts_expand(
+            dig, dep, iters, backend="ref", **kw), reps=3, warmup=1)
+        c["us_per_generation"] = c["ms"] * 1e3 / c["generations"]
+    for name, c in cases.items():
+        c.update(expand_bounds(fdep.shape[0] if name.startswith("task")
+                               else 1, c["count"], c["left"], sha1))
+        del c["result"]
+        log(f"[kernel] uts_expand {name}: bit-equal to the plain version; "
+            f"{c['count']} nodes, {c['left']} left, {c['launches']} "
+            f"launches, {c['generations']} generations"
+            + (f"; kernel {c['ms']:.4f} ms ({c['us_per_generation']:.3f} "
+               f"us a generation), plain {c['plain_ms']:.4f} ms"
+               if "ms" in c else "")
+            + f"; bound {c['bound_ms']:.4f} ms ({c['bound_by']}; loose "
+            f"{c['bound_loose_ms']:.4f} ms; stack traffic "
+            f"{c['stack_traffic_ms']:.4f} ms)")
+
+    # the depth-14 tree through the kernel alone
+    d14 = dict(b0=4.0, max_depth=UTS_DEPTH, chunk=8192)
+    before = launches("uts_expand")
+    reset_expand_generations()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    count, _, left = uts_expand(*root, 2**62, backend="cuda", **d14)
+    end.record()
+    end.synchronize()
+    if count != UTS_DEPTH14_NODES or left.shape[0]:
+        raise AssertionError(f"uts_expand depth {UTS_DEPTH}: {count} nodes")
+    tree = {"ms": start.elapsed_time(end),
+            "launches": launches("uts_expand") - before,
+            "generations": expand_generations(), "nodes": count,
+            **expand_bounds(1, count, 0, sha1)}
+    tree["us_per_generation"] = tree["ms"] * 1e3 / tree["generations"]
+    log(f"[kernel] uts_expand depth {UTS_DEPTH} tree alone: {count} nodes in "
+        f"{tree['ms']:.3f} ms, {tree['launches']} launches, "
+        f"{tree['generations']} generations, "
+        f"{tree['us_per_generation']:.3f} us a generation; bound "
+        f"{tree['bound_ms']:.3f} ms ({tree['bound_by']}; loose "
+        f"{tree['bound_loose_ms']:.3f} ms; stack traffic "
+        f"{tree['stack_traffic_ms']:.3f} ms)")
+    # generations with no child: a bag of leaves (depth = max_depth), so
+    # each generation is the scan and the grid barrier alone
+    n_leaf = 8192 * 512
+    leaves = (torch.zeros((5, n_leaf), dtype=torch.int32, device=dev),
+              torch.full((n_leaf,), UTS_DEPTH, dtype=torch.int32, device=dev))
+    reset_expand_generations()
+    count, _, left = uts_expand(*leaves, 2**62, backend="cuda", **d14)
+    if count != n_leaf or left.shape[0]:
+        raise AssertionError(f"uts_expand on {n_leaf} leaves: {count} nodes, "
+                             f"{left.shape[0]} left")
+    leaf = {"nodes": n_leaf, "generations": expand_generations(),
+            "ms": cuda_time_ms(lambda: uts_expand(*leaves, 2**62,
+                                                  backend="cuda", **d14),
+                               reps=5, warmup=1)}
+    leaf["us_per_generation"] = leaf["ms"] * 1e3 / leaf["generations"]
+    log(f"[kernel] uts_expand on {n_leaf} leaves: {leaf['generations']} "
+        f"generations without a child in {leaf['ms']:.3f} ms, "
+        f"{leaf['us_per_generation']:.3f} us a generation (scan and grid "
+        f"barrier; the bag's copy in and one launch included)")
+    head = cases["task"]
+    return {"name": "uts_expand", "max_abs_err": 0, "matched": True,
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "bound_loose_ms": head["bound_loose_ms"], "library_ms": None,
+            "shape": f"a {fdep.shape[0]}-node depth-{UTS_DEPTH} frontier, "
+                     f"budget 50,000, chunk 8192",
+            "cases": cases, "depth14_tree": tree, "leaf_generations": leaf}
 
 
 def cycle_exit_run(c_re, c_im, max_iter: int, every: int) -> tuple:
@@ -382,17 +629,20 @@ class OperandTap:
 
     While the tap is open, the registered op's CUDA body is wrapped: every
     launch goes through the real body (which counts it) and then offers
-    its padded operands to a seeded reservoir of ``k`` per distinct
-    launch signature (shapes and static arguments), so the sample spans
-    the whole run.  It holds references, not copies: dispatch hands a
-    body freshly padded tensors or the caller's own, which nothing writes
-    afterwards.
+    its padded operands (and static arguments) to a seeded reservoir of
+    ``k`` per ``key``, by default the launch signature (shapes and static
+    arguments), so the sample spans the whole run.  It holds references,
+    not copies: dispatch hands a body freshly padded tensors or the
+    caller's own, which nothing writes afterwards.
     """
 
-    def __init__(self, name: str, k: int, seed: int = 0) -> None:
+    def __init__(self, name: str, k: int, seed: int = 0, key=None) -> None:
         import random
         import threading
         self.name, self.k = name, k
+        self.key = key or (lambda args, static: (
+            tuple(tuple(a.shape) for a in args),
+            tuple(sorted(static.items()))))
         self.rng = random.Random(seed)
         self.lock = threading.Lock()
         self.seen: dict = {}
@@ -411,17 +661,16 @@ class OperandTap:
 
     def _body(self, *args, **static):
         out = self.op.cuda_body(*args, **static)
-        key = (tuple(tuple(a.shape) for a in args),
-               tuple(sorted(static.items())))
+        key = self.key(args, static)
         with self.lock:
             seen = self.seen[key] = self.seen.get(key, 0) + 1
             kept = self.samples.setdefault(key, [])
             if len(kept) < self.k:
-                kept.append(args)
+                kept.append((args, static))
             else:
                 j = self.rng.randrange(seen)
                 if j < self.k:
-                    kept[j] = args
+                    kept[j] = (args, static)
         return out
 
 
@@ -444,29 +693,36 @@ def run_path(name: str, kernel: str, fn, required: bool = True) -> tuple:
     return out, wall, n
 
 
+def uts_tap_key(args, static) -> tuple:
+    """A ``uts_expand`` call's sample key: its bag size and its budget,
+    each to the next power of two, and its other static arguments."""
+    from repro_torch.kernels.dispatch import bucket
+    return (bucket(args[1].shape[0], 1), bucket(static["iters"], 1),
+            tuple(sorted((k, v) for k, v in static.items() if k != "iters")))
+
+
 def check_uts_samples(tap: OperandTap) -> dict:
-    """Every sampled ``uts_hash`` launch of the main path, again through
-    the kernel and through its plain version on the card: bit-equal."""
-    import torch
-    from repro_torch.kernels.uts_hash.ops import uts_child_digests
-    lanes = 0
-    for (shapes, _), kept in sorted(tap.samples.items()):
-        for parent, ix in kept:
-            got = uts_child_digests(parent, ix, backend="cuda")
-            want = uts_child_digests(parent, ix, backend="ref")
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"uts_hash at main-path shape {shapes}: kernel differs "
-                    f"from plain version on "
-                    f"{int((got != want).any(dim=0).sum())} lanes")
-            lanes += parent.shape[1]
-    sizes = sorted(s[0][1] for s, _ in tap.samples.items())
+    """Every sampled ``uts_expand`` call of the main path, again through
+    the kernel and through its plain version on the card: bit-equal
+    (``expand_both``), with its budget cut to ``UTS_REPLAY_ITERS``."""
+    nodes, replayed = 0, 0
+    for key, kept in sorted(tap.samples.items()):
+        for (dig, dep), static in kept:
+            kw = {k: v for k, v in static.items()
+                  if k not in ("iters", "capacity")}
+            iters = min(static["iters"], UTS_REPLAY_ITERS)
+            replayed += iters < static["iters"]
+            nodes += expand_both(dig, dep, iters, capacity=static["capacity"],
+                                 **kw)["count"]
     n = sum(len(v) for v in tap.samples.values())
-    log(f"[uts] {n} sampled main-path launches ({lanes} lanes, padded "
-        f"sizes {sizes}) bit-equal to the plain version")
-    return {"samples": n, "lanes": lanes, "padded_sizes": sizes,
-            "launches_by_size": {str(s[0][1]): c
-                                 for s, c in sorted(tap.seen.items())}}
+    calls = sum(tap.seen.values())
+    log(f"[uts] {n} sampled main-path uts_expand calls of {calls} "
+        f"({len(tap.samples)} keys of bag size and budget; {replayed} "
+        f"replayed with the budget cut to {UTS_REPLAY_ITERS}; {nodes} nodes) "
+        f"bit-equal to the plain version")
+    return {"samples": n, "nodes": nodes, "cut_to_replay_budget": replayed,
+            "calls_by_key": {str(k[:2]): c for k, c in
+                             sorted(tap.seen.items())}}
 
 
 def duration_stats(ms: list) -> dict:
@@ -508,7 +764,7 @@ def check_mandelbrot_samples(tap: OperandTap, cap: int) -> dict:
     n_full = 0
     for (shapes, static), kept in sorted(tap.samples.items()):
         max_iter = dict(static)["max_iter"]
-        for c_re, c_im in kept:
+        for (c_re, c_im), _ in kept:
             got = dwell = mandelbrot(c_re, c_im, max_iter, backend="cuda")
             top = int(got.max())
             it = max_iter if max_iter <= cap or top < cap else cap
@@ -598,14 +854,15 @@ def in_set_bounds(planes: list, cap: int) -> dict:
     return out
 
 
-def device_timeline(fn) -> tuple:
+def device_timeline(fn, kernel: str = "dwell_") -> tuple:
     """Run ``fn`` once under ``torch.profiler`` (device activity only, so
     the host's own pace is disturbed least) and read the device's
     timeline: its idle share of the wall time (the union of every kernel,
     copy and fill, so that work on concurrent streams counts once), the
-    durations of every ``mandelbrot`` launch, and the share of the wall
-    time during which at least one launch longer than ``MS_LONG_MS`` ran.
-    Returns ``(fn's result, the record)``."""
+    durations of every launch of the kernel whose name holds ``kernel``
+    (``mandelbrot``'s by default), and the share of the wall time during
+    which at least one launch longer than ``MS_LONG_MS`` ran.  Returns
+    ``(fn's result, the record)``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -629,7 +886,7 @@ def device_timeline(fn) -> tuple:
     events = [e for e in prof.profiler.kineto_results.events()
               if e.device_type() == DeviceType.CUDA]
     spans = [(e.start_ns() / 1e3, e.end_ns() / 1e3) for e in events]
-    dwell = [s for s, e in zip(spans, events) if "dwell_" in e.name()]
+    dwell = [s for s, e in zip(spans, events) if kernel in e.name()]
     long = [(a, b) for a, b in dwell if b - a > MS_LONG_MS * 1e3]
     wall_us = wall * 1e6
     rec = {"wall_s": wall, "device_ops": len(spans),
@@ -639,13 +896,16 @@ def device_timeline(fn) -> tuple:
            "long_launch_union_s": union_us(long) / 1e6,
            "long_launch_share": union_us(long) / wall_us}
     if not dwell:
-        raise AssertionError("the profiler saw no mandelbrot launch")
+        raise AssertionError(f"the profiler saw no {kernel} launch")
     return out, rec
 
 
 def phase_uts(dev, depth: int) -> dict:
     from repro_torch.algorithms import UTSParams, uts_sequential, uts_spec
     from repro_torch.core import run_irregular
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.uts_hash.ops import (expand_generations,
+                                                  reset_expand_generations)
 
     for d, want in UTS_SIZES.items():
         got = uts_sequential(UTSParams(seed=19, b0=4.0, max_depth=d),
@@ -669,20 +929,53 @@ def phase_uts(dev, depth: int) -> dict:
              "elastic batching=False": elastic(False),
              "elastic batching=True": elastic(True)}
     runs = {}
-    with OperandTap("uts_hash", k=2) as tap:
+    with OperandTap("uts_expand", k=UTS_SAMPLES_PER_KEY,
+                    key=uts_tap_key) as tap:
         for name, fn in paths.items():
-            (count, tasks), wall, n = run_path(f"UTS {name}", "uts_hash", fn)
+            calls0 = sum(tap.seen.values())
+            reset_expand_generations()
+            (count, tasks), wall, n = run_path(f"UTS {name}", "uts_expand",
+                                               fn)
+            n_hash = launches("uts_hash")
+            calls = sum(tap.seen.values()) - calls0
+            gens = expand_generations()
             runs[name] = {"nodes": count, "seconds": wall, "tasks": tasks,
-                          "nodes_per_s": count / wall, "launches": n}
+                          "nodes_per_s": count / wall, "launches": n,
+                          "calls": calls, "relaunches": n - calls,
+                          "generations": gens,
+                          "uts_hash_launches": n_hash}
             log(f"[uts] depth {depth} {name}: {count} nodes, {tasks} tasks, "
-                f"{wall:.3f} s, {count / wall:.1f} nodes/s, {n} uts_hash "
-                f"launches")
+                f"{wall:.3f} s, {count / wall:.1f} nodes/s; {calls} "
+                f"uts_expand calls, {n} launches ({n - calls} relaunches), "
+                f"{gens} generations ({wall * 1e6 / gens:.3f} us of wall "
+                f"time a generation); {n_hash} uts_hash launches")
+            if n_hash < 1:
+                raise AssertionError(f"UTS {name}: uts_hash not launched")
+            if calls > tasks:
+                raise AssertionError(f"UTS {name}: {calls} uts_expand calls "
+                                     f"for {tasks} tasks")
+    if runs["sequential"]["launches"] > 5:
+        raise AssertionError(f"UTS sequential: "
+                             f"{runs['sequential']['launches']} uts_expand "
+                             f"launches, want at most 5")
     counts = {r["nodes"] for r in runs.values()}
     if len(counts) != 1:
         raise AssertionError(f"UTS depth {depth}: counts disagree {runs}")
     samples = check_uts_samples(tap)
+    # where the time of an elastic run goes: once more (batching off),
+    # under the profiler, outside the counted runs above
+    (count, tasks), prof = device_timeline(elastic(False), "uts_expand")
+    if count != UTS_DEPTH14_NODES:
+        raise AssertionError(f"UTS profiled run: {count} nodes")
+    log(f"[uts] profiled elastic run (batching off): {prof['wall_s']:.3f} s "
+        f"wall, {tasks} tasks, {prof['device_ops']} device operations, busy "
+        f"{prof['busy_s']:.3f} s, idle share {prof['idle_share']:.4f}; "
+        f"uts_expand launches {prof['launches']}")
     return {"launches": {k: r["launches"] for k, r in runs.items()},
-            "nodes": counts.pop(), "runs": runs, "samples": samples}
+            "uts_hash_launches": {k: r["uts_hash_launches"]
+                                  for k, r in runs.items()},
+            "nodes": counts.pop(), "runs": runs, "samples": samples,
+            "profile": prof}
 
 
 def mariani_silver_over(dwells, p):
@@ -1192,7 +1485,7 @@ def phase_model(dev) -> dict:
                                              key=lambda kv: str(kv[0])):
             st = dict(static)
             kind = "global" if st["window"] is None else "local"
-            q2, k2, v2 = kept[0]
+            (q2, k2, v2), _ = kept[0]
             main_path[kind] = check_flash(
                 q2, k2, v2, causal=st["causal"], window=st["window"],
                 softcap=st["softcap"], reps=3,
@@ -1366,7 +1659,9 @@ def main() -> int:
     t_start = time.monotonic()
     card = phase_environment()
     build = phase_build()
-    kernels = {"uts_hash": phase_kernel_uts(dev),
+    sha1 = build["sha1_sass"]
+    kernels = {"uts_hash": phase_kernel_uts(dev, sha1),
+               "uts_expand": phase_kernel_uts_expand(dev, sha1),
                "mandelbrot": phase_kernel_mandelbrot(dev)}
     flash_fixed = phase_flash_fixed(dev)
     uts = phase_uts(dev, UTS_DEPTH)
@@ -1375,7 +1670,8 @@ def main() -> int:
     model = phase_model(dev)
     # run_path has already required a launch on every path that runs a
     # hand kernel
-    kernels["uts_hash"]["launches_by_path"] = uts["launches"]
+    kernels["uts_expand"]["launches_by_path"] = uts["launches"]
+    kernels["uts_hash"]["launches_by_path"] = uts["uts_hash_launches"]
     kernels["mandelbrot"]["launches_by_path"] = ms["launches"]
     # and at the main path's in-set shapes (max_iter 5,000,000), both builds
     kernels["mandelbrot"]["in_set_main_path"] = {
@@ -1407,7 +1703,8 @@ def main() -> int:
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
                | {x: k[x] for x in ("local_layer", "full_iteration_ms",
-                                    "bound_dwell_sum_ms", "in_set_main_path")
+                                    "bound_dwell_sum_ms", "in_set_main_path",
+                                    "bound_loose_ms")
                   if x in k}
                for name, k in kernels.items()]
     report = {"card": card, "device": torch.cuda.get_device_name(0),

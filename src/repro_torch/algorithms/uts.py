@@ -10,9 +10,10 @@ Geometric(mean b0) with a depth cutoff.
   leftover bag; ``run_irregular`` re-splits leftovers with the current
   split factor (``uts_spec``);
 * a task's traversal is generation-vectorized: a whole chunk of the
-  frontier advances one generation per step, and the step stays on the
-  device — child counts from the threshold table, ``repeat_interleave``
-  to the parents, child indices, then the ``uts_hash`` kernel.
+  frontier advances one generation per step.  On the card every
+  generation of a task runs inside one launch of the ``uts_expand``
+  kernel (child counts, their scan, the SHA-1 of every child and the LIFO
+  stack stay on the device); the host reads two integers per launch.
 
 Node counts, leftover frontiers and WAL encodings are bit-identical to
 the reference package's.
@@ -27,8 +28,7 @@ import torch
 
 from ..core import TaskShape, WorkSpec
 from ..device import DeviceLike, resolve_device
-from ..kernels.uts_hash.ops import (geometric_children, root_digest,
-                                    uts_child_digests)
+from ..kernels.uts_hash.ops import root_digest, uts_expand
 
 __all__ = ["Bag", "UTSParams", "expand_bag", "uts_spec", "uts_sequential",
            "expected_tree_size", "encode_bag", "decode_bag"]
@@ -91,29 +91,6 @@ class Bag:
                    torch.cat([b.depths for b in full]))
 
 
-def _expand_generation(digests: torch.Tensor, depths: torch.Tensor,
-                       params: UTSParams) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Expand one generation of nodes -> (child_digests, child_depths),
-    on the nodes' device."""
-    dev = depths.device
-    n = depths.shape[0]
-    if n == 0:
-        return Bag.empty(dev).digests, Bag.empty(dev).depths
-    counts = geometric_children(digests, depths, b0=params.b0,
-                                max_depth=params.max_depth).to(torch.int64)
-    total = int(counts.sum())
-    if total == 0:
-        return Bag.empty(dev).digests, Bag.empty(dev).depths
-    parent_ix = torch.repeat_interleave(
-        torch.arange(n, device=dev), counts, output_size=total)
-    # child index within each parent: 0..m_i-1
-    offsets = torch.cumsum(counts, 0) - counts
-    child_ix = (torch.arange(total, device=dev)
-                - offsets[parent_ix]).to(torch.int32)
-    children = uts_child_digests(digests[:, parent_ix], child_ix)
-    return children, depths[parent_ix] + 1
-
-
 def expand_bag(bag: Bag, iters: int,
                params: UTSParams) -> Tuple[int, Bag]:
     """Traverse up to ``iters`` nodes of ``bag``; return (count, leftover).
@@ -122,19 +99,10 @@ def expand_bag(bag: Bag, iters: int,
     function of its inputs.  LIFO order (children pushed on top) keeps
     the open frontier bounded the way the canonical DFS does.
     """
-    count = 0
-    stack = bag
-    while count < iters and stack.size:
-        budget = iters - count
-        take = min(stack.size, budget, params.chunk)
-        cut = stack.size - take
-        head = Bag(stack.digests[:, cut:], stack.depths[cut:])
-        rest = Bag(stack.digests[:, :cut], stack.depths[:cut])
-        count += take
-        children, depths = _expand_generation(head.digests, head.depths,
-                                              params)
-        stack = Bag.merge([rest, Bag(children, depths)])
-    return count, stack
+    count, digests, depths = uts_expand(
+        bag.digests, bag.depths, iters, b0=params.b0,
+        max_depth=params.max_depth, chunk=params.chunk)
+    return count, Bag(digests, depths)
 
 
 def uts_sequential(params: UTSParams,

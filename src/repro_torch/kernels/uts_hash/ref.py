@@ -1,7 +1,8 @@
-"""Plain PyTorch SHA-1 child digests and the UTS tree-shape helpers.
+"""Plain PyTorch SHA-1 child digests, UTS traversal and tree-shape helpers.
 
-The plain version of the ``uts_hash`` kernel (``csrc/uts_hash.cu``): the
-CPU path of the port, and what the kernel is held against on the card.
+The plain versions of the ``uts_hash`` and ``uts_expand`` kernels
+(``csrc/uts_hash.cu``): the CPU path of the port, and what the kernels
+are held against on the card.
 
 Digests are carried as **int32** tensors holding the uint32 bit pattern:
 PyTorch has no shift, add or not for ``torch.uint32`` on the CPU.  int32
@@ -21,12 +22,14 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["sha1_words", "uts_child_digests_ref", "root_digest",
-           "random_u31", "geometric_children", "child_count_thresholds"]
+           "random_u31", "geometric_children", "child_count_thresholds",
+           "expand_generation", "uts_expand_ref"]
 
 _H0 = (0x67452301, 0xEFCDAB89, 0x98BADCFE, 0x10325476, 0xC3D2E1F0)
 _K = (0x5A827999, 0x6ED9EBA1, 0x8F1BBCDC, 0xCA62C1D6)
@@ -160,3 +163,57 @@ def geometric_children(digest: torch.Tensor, depth: torch.Tensor, *,
     thr = _thresholds_on(float(b0), int(max_children), u31.device)
     m = max_children - torch.searchsorted(thr, u31, right=True)
     return torch.where(depth >= max_depth, 0, m).to(torch.int32)
+
+
+def expand_generation(digests: torch.Tensor, depths: torch.Tensor,
+                      counts: torch.Tensor,
+                      total: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The children of a generation of nodes: parent-major, child index
+    minor.  ``counts`` [n] int64 children per node, ``total`` their sum.
+    Returns (child digests [5, total], child depths [total])."""
+    dev = depths.device
+    if total == 0:
+        return (torch.zeros((5, 0), dtype=torch.int32, device=dev),
+                torch.zeros((0,), dtype=torch.int32, device=dev))
+    parent_ix = torch.repeat_interleave(
+        torch.arange(counts.shape[0], device=dev), counts, output_size=total)
+    # child index within each parent: 0..m_i-1
+    offsets = torch.cumsum(counts, 0) - counts
+    child_ix = (torch.arange(total, device=dev)
+                - offsets[parent_ix]).to(torch.int32)
+    children = uts_child_digests_ref(digests[:, parent_ix], child_ix)
+    return children, depths[parent_ix] + 1
+
+
+def uts_expand_ref(digests: torch.Tensor, depths: torch.Tensor, iters: int,
+                   *, b0: float, max_depth: int, chunk: int,
+                   max_children: int = 64, capacity: Optional[int] = None
+                   ) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """Traverse up to ``iters`` nodes of the bag (digests [5, S] int32,
+    depths [S] int32); return (count, leftover digests, leftover depths).
+
+    LIFO by generations: each takes the top ``min(S, iters - count,
+    chunk)`` nodes and pushes their children in their place.  With a
+    ``capacity``, stops before the first generation whose stack would
+    exceed it, with that generation undone, as the kernel does when its
+    work buffer is full.
+    """
+    count = 0
+    while count < iters and depths.shape[0]:
+        size = depths.shape[0]
+        take = min(size, iters - count, chunk)
+        cut = size - take
+        head_d, head_p = digests[:, cut:], depths[cut:]
+        counts = geometric_children(head_d, head_p, b0=b0,
+                                    max_depth=max_depth,
+                                    max_children=max_children
+                                    ).to(torch.int64)
+        total = int(counts.sum())
+        if capacity is not None and cut + total > capacity:
+            break
+        children, child_depths = expand_generation(head_d, head_p, counts,
+                                                   total)
+        digests = torch.cat([digests[:, :cut], children], dim=1)
+        depths = torch.cat([depths[:cut], child_depths])
+        count += take
+    return count, digests, depths

@@ -170,14 +170,18 @@ def test_mandelbrot_round_trip_exact(shape):
 
 def _uts_frontier_sizes(max_depth: int):
     """Generation-by-generation frontier sizes of a real UTS run."""
-    from repro_torch.algorithms.uts import (Bag, UTSParams,
-                                            _expand_generation)
+    from repro_torch.algorithms.uts import Bag, UTSParams
+    from repro_torch.kernels.uts_hash.ref import (expand_generation,
+                                                  geometric_children)
     params = UTSParams(seed=19, b0=4.0, max_depth=max_depth, chunk=4096)
     bag = Bag.root(params, CPU)
     sizes = []
     while bag.size:
         sizes.append(bag.size)
-        bag = Bag(*_expand_generation(bag.digests, bag.depths, params))
+        counts = geometric_children(bag.digests, bag.depths, b0=params.b0,
+                                    max_depth=params.max_depth).to(torch.int64)
+        bag = Bag(*expand_generation(bag.digests, bag.depths, counts,
+                                     int(counts.sum())))
     return sizes
 
 

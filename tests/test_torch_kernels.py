@@ -2,8 +2,8 @@
 PyTorch SHA-1 against hashlib, the numpy implementation and the JAX
 ``ref`` backend; the threshold-table child counts against
 ``geometric_children_np``; the PyTorch dwell against the JAX ``ref``
-dwell.  Every comparison is bit-exact.  The two tests marked ``cuda``
-hold the hand kernels against the plain versions and need the card."""
+dwell.  Every comparison is bit-exact.  The tests marked ``cuda`` hold
+the hand kernels against the plain versions and need the card."""
 import hashlib
 import importlib.util
 from fractions import Fraction
@@ -27,7 +27,11 @@ from repro_torch.kernels.mandelbrot.ops import (mandelbrot, mandelbrot_cuda,
                                                 mandelbrot_cuda_full_iteration)
 from repro_torch.kernels.mandelbrot.ref import (_fma_f32, coords,
                                                 mandelbrot_ref)
-from repro_torch.kernels.uts_hash.ops import uts_child_digests, uts_hash_cuda
+from repro_torch.kernels.dispatch import launches
+from repro_torch.kernels.uts_hash.ops import (expand_generations,
+                                              reset_expand_generations,
+                                              uts_child_digests, uts_expand,
+                                              uts_expand_cuda, uts_hash_cuda)
 from repro_torch.kernels.uts_hash.ref import (child_count_thresholds,
                                               geometric_children,
                                               root_digest,
@@ -139,6 +143,21 @@ def test_uts_hash_cuda_wrapper_rejects_cpu_tensors():
     par = torch.zeros((5, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensors"):
         uts_hash_cuda(par, torch.zeros(4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype,err", [
+    (torch.int32, ValueError), (torch.int64, TypeError),
+    (torch.float32, TypeError)])
+def test_uts_expand_cuda_wrapper_rejects_cpu_tensors_and_wrong_dtypes(
+        dtype, err):
+    dig = torch.zeros((5, 4), dtype=dtype)
+    dep = torch.zeros(4, dtype=dtype)
+    with pytest.raises(err, match="CUDA tensors" if err is ValueError
+                       else "int32"):
+        uts_expand_cuda(dig, dep, 10, b0=4.0, max_depth=6, chunk=8)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        uts_expand(dig, dep, 10, b0=4.0, max_depth=6, chunk=8,
+                   backend="cuda")
 
 
 # -- mandelbrot -----------------------------------------------------------------
@@ -393,6 +412,43 @@ def test_uts_hash_kernel_matches_plain_on_card(cuda_device):
                .astype(np.uint32)).to(cuda_device)
     ix = _i32(rng.randint(0, 64, size=n).astype(np.uint32)).to(cuda_device)
     assert torch.equal(uts_hash_cuda(par, ix), uts_child_digests_ref(par, ix))
+
+
+def _root_on(device):
+    return (root_digest(19, device),
+            torch.zeros(1, dtype=torch.int32, device=device))
+
+
+@pytest.mark.cuda
+def test_uts_expand_kernel_matches_plain_on_card(cuda_device):
+    """The whole depth-10 tree in one launch (its stack peaks at 70,939
+    nodes): the published size, an empty leftover, the plain version's
+    result bit for bit."""
+    dig, dep = _root_on(cuda_device)
+    kw = dict(b0=4.0, max_depth=10, chunk=8192)
+    before = launches("uts_expand")
+    reset_expand_generations()
+    got = uts_expand(dig, dep, 2**62, capacity=1 << 17, backend="cuda", **kw)
+    assert launches("uts_expand") - before == 1 and expand_generations() > 0
+    want = uts_expand(dig, dep, 2**62, backend="ref", **kw)
+    assert got[0] == want[0] == 461459
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.cuda
+def test_uts_expand_kernel_relaunches_on_card(cuda_device):
+    """A budget-cut call from a depth-14 frontier at the least capacity:
+    the kernel stops on a full buffer and is launched again, and the
+    result is the plain version's, bit for bit."""
+    kw = dict(b0=4.0, max_depth=14, chunk=8192)
+    _, dig, dep = uts_expand(*_root_on(cuda_device), 10_000, backend="ref",
+                             **kw)
+    before = launches("uts_expand")
+    got = uts_expand(dig, dep, 50_000, capacity=1, backend="cuda", **kw)
+    assert launches("uts_expand") - before >= 4
+    want = uts_expand(dig, dep, 50_000, backend="ref", **kw)
+    assert got[0] == want[0] == 50_000
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
 
 
 @pytest.mark.cuda

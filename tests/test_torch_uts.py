@@ -1,7 +1,8 @@
 """The port's UTS against the reference package on the CPU: tree sizes,
-bit-equal leftovers after a budgeted expansion of the same frontier,
-identical counts over every pool / batching / sharding path, and the
-same WAL JSON."""
+bit-equal leftovers after a budgeted expansion of the same frontier
+(also through ``uts_expand_ref`` and its grow-and-relaunch loop, at
+capacities that force the loop to step again), identical counts over
+every pool / batching / sharding path, and the same WAL JSON."""
 import json
 
 import numpy as np
@@ -14,6 +15,9 @@ from repro_torch.algorithms import (Bag, UTSParams, expand_bag,
                                     uts_spec)
 from repro_torch.convert import bag_from_reference, bag_to_reference
 from repro_torch.core import TaskShape, make_pool, run_irregular
+from repro_torch.kernels import launches
+from repro_torch.kernels.uts_hash.ops import expand_relaunching, uts_expand
+from repro_torch.kernels.uts_hash.ref import uts_expand_ref
 
 CPU = torch.device("cpu")
 UTS_P = dict(seed=19, b0=4.0, max_depth=6, chunk=1024)
@@ -64,6 +68,122 @@ def test_expand_bag_leftovers_match_reference(warm, budget, chunk):
     dig, dep = bag_to_reference(left)
     assert np.array_equal(dig, want_left.digests)
     assert np.array_equal(dep, want_left.depths)
+
+
+def _peak_stack(digests, depths, budget, **kw):
+    """The largest stack a budgeted expansion reaches, one generation at a
+    time (a call with ``iters`` = the generation's take runs exactly it)."""
+    peak, count = depths.shape[0], 0
+    while count < budget and depths.shape[0]:
+        take = min(depths.shape[0], budget - count, kw["chunk"])
+        done, digests, depths = uts_expand_ref(digests, depths, take, **kw)
+        count += done
+        peak = max(peak, depths.shape[0])
+    return peak
+
+
+def _counting(step, calls):
+    def counted(*args, **kw):
+        calls.append(kw["capacity"])
+        return step(*args, **kw)
+    return counted
+
+
+@pytest.mark.parametrize("capacity", ["uncapped", "one relaunch", "tiny"])
+@pytest.mark.parametrize("warm,budget,chunk", [
+    (300, 1000, 256), (50, 777, 64), (2000, 5000, 1024), (10, 3, 8)])
+def test_uts_expand_ref_matches_reference(warm, budget, chunk, capacity):
+    """``uts_expand_ref`` (the kernel's plain version) against the JAX
+    ``expand_bag`` on the same frontier: uncapped, and through the
+    grow-and-relaunch loop at a capacity one short of the peak stack
+    (exactly one relaunch) and at the least capacity (several)."""
+    jp = jax_uts.UTSParams(seed=19, b0=4.0, max_depth=9, chunk=chunk)
+    _, frontier = jax_uts.expand_bag(jax_uts.Bag.root(jp), warm, jp)
+    want_count, want_left = jax_uts.expand_bag(frontier, budget, jp)
+    bag = bag_from_reference(frontier.digests, frontier.depths, CPU)
+    kw = dict(b0=4.0, max_depth=9, chunk=chunk)
+    calls = []
+    if capacity == "uncapped":
+        count, dig, dep = uts_expand_ref(bag.digests, bag.depths, budget,
+                                         **kw)
+    else:
+        peak = _peak_stack(bag.digests, bag.depths, budget, **kw)
+        assert peak > bag.size
+        cap = peak - 1 if capacity == "one relaunch" else 1
+        count, dig, dep = expand_relaunching(
+            _counting(uts_expand_ref, calls), bag.digests, bag.depths,
+            budget, capacity=cap, **kw)
+        assert len(calls) == 2 if capacity == "one relaunch" \
+            else len(calls) >= 2
+    assert count == want_count
+    got_dig, got_dep = bag_to_reference(Bag(dig, dep))
+    assert np.array_equal(got_dig, want_left.digests)
+    assert np.array_equal(got_dep, want_left.depths)
+
+
+def test_relaunch_loop_at_tiny_capacity_equals_one_uncapped_run():
+    """The grow-and-relaunch loop over the plain step, from the root at a
+    capacity of one node, doubling many times, against one uncapped run."""
+    kw = dict(b0=4.0, max_depth=9, chunk=64)
+    root = Bag.root(UTSParams(seed=19), CPU)
+    calls = []
+    got = expand_relaunching(_counting(uts_expand_ref, calls), root.digests,
+                             root.depths, 2**62, capacity=1, **kw)
+    want = uts_expand_ref(root.digests, root.depths, 2**62, **kw)
+    assert len(calls) >= 8
+    assert calls == sorted(calls) and calls[0] == 1
+    assert got[0] == want[0] == 115780
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("size,iters", [(0, 100), (5, 0), (5, -3)])
+def test_uts_expand_returns_the_bag_untouched(size, iters):
+    """An empty bag or a budget <= 0: the same tensors back, count 0, no
+    step of the loop and no launch."""
+    _, frontier = jax_uts.expand_bag(
+        jax_uts.Bag.root(jax_uts.UTSParams(max_depth=6)), 3,
+        jax_uts.UTSParams(max_depth=6))
+    bag = bag_from_reference(frontier.digests[:, :size],
+                             frontier.depths[:size], CPU)
+    before = launches("uts_expand")
+    count, dig, dep = uts_expand(bag.digests, bag.depths, iters, b0=4.0,
+                                 max_depth=6, chunk=8)
+    assert count == 0 and dig is bag.digests and dep is bag.depths
+    assert launches("uts_expand") == before
+
+    def no_step(*args, **kw):
+        raise AssertionError("stepped")
+    assert expand_relaunching(no_step, bag.digests, bag.depths, iters,
+                              chunk=8, b0=4.0, max_depth=6) \
+        == (0, bag.digests, bag.depths)
+
+
+def test_uts_expand_unbounded_budget_is_the_whole_tree():
+    """iters = 2**62 (``uts_sequential``'s) runs the tree out: the
+    reference's count, an empty leftover."""
+    root = Bag.root(UTSParams(seed=19), CPU)
+    count, dig, dep = uts_expand(root.digests, root.depths, 2**62, b0=4.0,
+                                 max_depth=7, chunk=512)
+    assert count == jax_uts.uts_sequential(
+        jax_uts.UTSParams(max_depth=7, chunk=512)) == 7134
+    assert dig.shape == (5, 0) and dep.shape == (0,)
+
+
+@pytest.mark.parametrize("budget", [40, 10**6])
+def test_uts_expand_chunk_larger_than_the_bag(budget):
+    """A chunk larger than the bag (and than the tree's widest level):
+    every generation takes the whole stack, as the reference does."""
+    jp = jax_uts.UTSParams(seed=19, b0=4.0, max_depth=7, chunk=10**6)
+    _, frontier = jax_uts.expand_bag(jax_uts.Bag.root(jp), 5, jp)
+    want_count, want_left = jax_uts.expand_bag(frontier, budget, jp)
+    bag = bag_from_reference(frontier.digests, frontier.depths, CPU)
+    assert bag.size < jp.chunk
+    count, dig, dep = uts_expand(bag.digests, bag.depths, budget, b0=4.0,
+                                 max_depth=7, chunk=jp.chunk)
+    assert count == want_count
+    got_dig, got_dep = bag_to_reference(Bag(dig, dep))
+    assert np.array_equal(got_dig, want_left.digests)
+    assert np.array_equal(got_dep, want_left.depths)
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 7, 50])

@@ -59,7 +59,30 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    reference's 3e-5 + 1e-4 |value|, which holds the kernel's logic (the
    masks, the tile loop, the online softmax: one template for every
    dtype) tightly;
-7. the model path, gemma3-1b at full width with random weights from a
+7. betweenness centrality at the paper's scale 17 (``BC_PAPER``: 131,072
+   vertices, 1,001,740 edges; run before the model): ``bc_batch`` of 8
+   sampled sources of the paper graph against a queue-based float64
+   Brandes on the host (in worker processes, over their own R-MAT
+   sampling, whose edge set must equal the port's), and each source's
+   dependency sum against the sum of (d - 1) over the vertices it reaches
+   (scipy's BFS distances); once those workers have ended, the two level
+   kernels (``bc_level.cu``) against their plain versions, bit for bit
+   after every level of ``bc_batch``'s own loop (its ``steps`` hook), on
+   a scale-12 graph with 256 sources and on the paper graph with 64 and
+   with 1,024 sources (a main-path task's block), with CUDA-event times
+   per level (median of 10), the bytes bound, and ``torch.sparse.mm`` of
+   the CSR adjacency with the level's operand (the product alone, timed,
+   never called by the port); then ``bc_spec(BC_PAPER, n_tasks=128,
+   regenerate_graph=True)`` through ``run_irregular`` three times: on the
+   elastic pool (the timed run, sources per second), on a local pool of 4
+   threads with batching, which fuses queued blocks into
+   ``execute_batch`` calls (the elastic pool would run each block on its
+   own), and on the elastic pool under ``torch.profiler`` (the device's
+   idle share, every level launch's duration, the profiler's cost in
+   wall time); the elastic maps must be bit-equal and the fused one
+   agree within the reference's tolerances; 3 sampled tasks of the first
+   run replayed through the plain versions bit for bit;
+8. the model path, gemma3-1b at full width with random weights from a
    seed: ``prefill`` of prefill_32k's S = 32,768 (batch cut from 32 to 1),
    whose 26 attention layers must each launch the flash kernel, then one
    global and one local layer's own operands again through kernel and
@@ -70,11 +93,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    steps under ``torch.profiler`` (device busy time, largest kernels, the
    device's idle share); then ``serve`` (16 requests, 4 slots, max_seq
    256) through the ElasticBatcher, which must answer all;
-8. one JSON line with every kernel's launches on each main path, error,
+9. one JSON line with every kernel's launches on each main path, error,
    times and bound, then the last line ``{"ok": true, "device": ...}``.
 
-Each of the eight main-path runs (three UTS, two Mariani-Silver, prefill,
-decode, serve) is driven with the launch counts set to 0 just before it
+Each of the eleven main-path runs (three UTS, two Mariani-Silver, three BC,
+prefill, decode, serve) is driven with the launch counts set to 0 just before it
 and read just after it, and fails unless its kernel launched.  Decode and
 serve run no hand kernel (the decode product is plain PyTorch, as the
 reference leaves it to XLA, and the batcher's prefill only counts
@@ -88,12 +111,14 @@ for the integer kernels (a ``uts_expand`` sample with a budget over
 ``UTS_REPLAY_ITERS`` nodes, the sequential path's whole tree, is replayed
 with that budget; and a ``mandelbrot`` sample that reaches the
 plain version's cap, through the full-iteration build at the main path's
-own 5,000,000, bit for bit, each sample timed alone through both builds);
-for flash attention within a per-element
+own 5,000,000, bit for bit); for flash attention within a per-element
 bound as the model feeds it (bf16 v), and cast to float32 through the
-kernel's float32 build at the reference's 3e-5 / 1e-4.  Phases 3 and 6 check fixed shapes; this checks the main
-path's own.  The script imports nothing of the JAX reference package.  It
-needs CUDA: without a card it exits with code 2.
+kernel's float32 build at the reference's 3e-5 / 1e-4.  The
+``mandelbrot`` timings of main-path border strips are taken on strips
+chosen by rectangle (``time_border_strips``), not on that sample, so
+every run times the same strips.  Phases 3, 6 and 7 check fixed shapes;
+this checks the main path's own.  The script imports nothing of the JAX
+reference package.  It needs CUDA: without a card it exits with code 2.
 """
 from __future__ import annotations
 
@@ -124,6 +149,9 @@ MS_DWELL = 5_000_000
 MS_SAMPLE_CAP = 4096
 #: main-path launches kept per distinct launch signature (shape, max_iter)
 MS_SAMPLES_PER_SHAPE = 16
+#: main-path border strips timed alone, chosen by rectangle: whose border
+#: reaches the set, and others
+MS_TIMED_IN_SET, MS_TIMED_OTHER = 16, 80
 #: a mandelbrot launch longer than this counts as long (phase 5's profile)
 MS_LONG_MS = 1.0
 #: the full report goes here; the output directory of a chip call
@@ -159,6 +187,13 @@ UTS_REPLAY_ITERS = 400_000
 UTS_SAMPLES_PER_KEY = 2
 #: float32 operations per dwell iteration: 3 mul, 3 add/sub, 1 fma (2)
 MS_OPS_PER_ITER = 8
+#: one dwell iteration's dependent chain, zr -> fmul -> fsub -> fadd -> the
+#: next zr: three float32 operations, each issuing no sooner than 4 cycles
+#: after the one it waits on (the dependent-issue latency of the FP32 pipe
+#: on Volta and later, from public microbenchmarks: an assumption, not
+#: measured here).  A strip's points run side by side, so its slowest
+#: orbit's iterations times this chain bound its launch (the latency bound)
+MS_CHAIN_CYCLES = 3 * 4
 MS_BYTES_PER_POINT = 12           # two float32 in, one int32 out
 
 KERNEL_SOURCES = {
@@ -170,6 +205,12 @@ KERNEL_SOURCES = {
                    "src/repro/kernels/mandelbrot/kernel.py:74"),
     "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:115"),
+    "bc_forward_level": ("src/repro_torch/kernels/csrc/bc_level.cu",
+                         "none (XLA dots, src/repro/algorithms/"
+                         "betweenness.py:107, :124)"),
+    "bc_backward_level": ("src/repro_torch/kernels/csrc/bc_level.cu",
+                          "none (XLA dots, src/repro/algorithms/"
+                          "betweenness.py:107, :124)"),
 }
 
 
@@ -629,11 +670,13 @@ class OperandTap:
 
     While the tap is open, the registered op's CUDA body is wrapped: every
     launch goes through the real body (which counts it) and then offers
-    its padded operands (and static arguments) to a seeded reservoir of
-    ``k`` per ``key``, by default the launch signature (shapes and static
-    arguments), so the sample spans the whole run.  It holds references,
-    not copies: dispatch hands a body freshly padded tensors or the
-    caller's own, which nothing writes afterwards.
+    its padded operands (and static arguments) to a sample of ``k`` per
+    ``key``, by default the launch signature (shapes and static
+    arguments), so the sample spans the whole run.  The reservoir fills
+    in order of arrival, so runs with concurrent workers keep different
+    samples.  It holds references, not copies:
+    dispatch hands a body freshly padded tensors or the caller's own,
+    which nothing writes afterwards.
     """
 
     def __init__(self, name: str, k: int, seed: int = 0, key=None) -> None:
@@ -739,8 +782,7 @@ def duration_stats(ms: list) -> dict:
 
 def check_mandelbrot_samples(tap: OperandTap, cap: int) -> dict:
     """Every sampled ``mandelbrot`` launch of the main path, again through
-    the kernel and through its plain version on the card: bit-equal; and
-    each timed alone through the kernel and its full-iteration build.
+    the kernel and through its plain version on the card: bit-equal.
 
     The plain dwell syncs with the host once per iteration and stops when
     every point has escaped, so it cannot run an in-set point's 5,000,000
@@ -752,21 +794,17 @@ def check_mandelbrot_samples(tap: OperandTap, cap: int) -> dict:
     cannot go.  The kernel runs each sample at its own shape; the plain
     version, elementwise, runs one row of every sample of a class.
     """
-    import statistics as st
-
     import torch
     from repro_torch.kernels.mandelbrot.ops import (
         mandelbrot, mandelbrot_cuda_full_iteration)
     classes: dict = {}
-    timed = {"kernel": [], "full_iteration": []}
-    in_set = {"kernel": [], "full_iteration": []}
-    in_set_planes = []
-    n_full = 0
+    n_full, n_in_set = 0, 0
     for (shapes, static), kept in sorted(tap.samples.items()):
         max_iter = dict(static)["max_iter"]
         for (c_re, c_im), _ in kept:
-            got = dwell = mandelbrot(c_re, c_im, max_iter, backend="cuda")
+            got = mandelbrot(c_re, c_im, max_iter, backend="cuda")
             top = int(got.max())
+            n_in_set += top == max_iter
             it = max_iter if max_iter <= cap or top < cap else cap
             if it != max_iter:
                 full = mandelbrot_cuda_full_iteration(c_re, c_im,
@@ -778,13 +816,6 @@ def check_mandelbrot_samples(tap: OperandTap, cap: int) -> dict:
                         f"build on {int((got != full).sum())} points")
                 got = mandelbrot(c_re, c_im, it, backend="cuda")
                 n_full += 1
-            for name, fn in mandelbrot_builds(c_re, c_im, max_iter).items():
-                t = cuda_time_ms(fn, reps=3, warmup=1)
-                timed[name].append(t)
-                if top == max_iter:
-                    in_set[name].append(t)
-            if top == max_iter:
-                in_set_planes.append((c_re, c_im, dwell))
             cls = classes.setdefault(it, ([], [], [], []))
             for lst, t in zip(cls, (c_re, c_im, got)):
                 lst.append(t.reshape(-1))
@@ -806,50 +837,135 @@ def check_mandelbrot_samples(tap: OperandTap, cap: int) -> dict:
         log(f"[ms] {len(shapes)} sampled main-path launches at max_iter "
             f"{it} ({got.numel()} points, shapes {out[str(it)]['shapes']}) "
             f"bit-equal to the plain version")
-    if not in_set["kernel"]:
+    if not n_in_set:
         raise AssertionError("no sampled main-path launch reaches the set")
     log(f"[ms] {n_full} sampled launches that reach max_iter {cap} also "
         f"bit-equal to the full-iteration build at their own max_iter")
-    med = {k: st.median(v) for k, v in in_set.items()}
-    bounds = in_set_bounds(in_set_planes, cap)
-    med_bound = {k: st.median(v) for k, v in bounds.items()}
-    out["launch_ms"] = {k: duration_stats(v) for k, v in timed.items()}
-    out["in_set"] = {"samples": len(in_set["kernel"]),
-                     "median_ms": med, "speedup": med["full_iteration"] /
-                     med["kernel"], "median_bound_ms": med_bound,
-                     "kernel_ms": in_set["kernel"],
-                     "full_iteration_ms": in_set["full_iteration"],
-                     "bound_ms": bounds}
-    for k, v in out["launch_ms"].items():
-        log(f"[ms] sampled launches, each alone, {k}: {v}")
-    log(f"[ms] {len(in_set['kernel'])} sampled in-set launches: median "
-        f"kernel {med['kernel']:.4f} ms, full iteration "
-        f"{med['full_iteration']:.4f} ms ({out['in_set']['speedup']:.1f}x); "
-        f"median bound {med_bound['kernel']:.5f} ms (cycle exit, to "
-        f"{cap}), {med_bound['full_iteration']:.5f} ms (dwell sum)")
     return out
 
 
-def in_set_bounds(planes: list, cap: int) -> dict:
-    """The bound of each in-set sample (its padded plane and its dwells at
-    the main path's max_iter) for both builds: 12 bytes a point against
-    8 operations an iteration, counting for the full iteration every
-    dwell, and for the kernel what a plain run of its schedule to ``cap``
-    needs (points still running at ``cap`` counted at ``cap``, so this
-    bound is lower still than the kernel's work)."""
+def border_strip(rect: tuple, p, dev) -> tuple:
+    """The operands the main path hands the kernel for ``rect``'s border:
+    its border coordinates as ``evaluate_rect`` takes them, one [1, n]
+    row, padded as dispatch pads it."""
+    import torch
+    from repro_torch.algorithms.mariani_silver import Rect, _border_coords
+    from repro_torch.kernels.dispatch import bucket, get_kernel
+    op = get_kernel("mandelbrot")
+    planes = []
+    for a, pad in zip(_border_coords(Rect(*rect), p), op.pad_values):
+        plane = torch.full((bucket(1, op.bucket_floor),
+                            bucket(a.size, op.bucket_floor)), pad,
+                           dtype=torch.float32, device=dev)
+        plane[0, :a.size] = torch.from_numpy(a)
+        planes.append(plane)
+    return tuple(planes)
+
+
+def time_border_strips(dwells, p, rects: list, dev, cap: int,
+                       clock_hz: float) -> dict:
+    """Main-path border strips timed alone through the kernel and its
+    full-iteration build, sampled by rectangle: of the rectangles the run
+    evaluates (``mariani_silver_over``), a seeded choice of
+    ``MS_TIMED_IN_SET`` whose border reaches the set and
+    ``MS_TIMED_OTHER`` others, so that every run times the same strips.
+    Each strip's dwells must equal the naive render's on its border, and
+    the two builds' must agree; the in-set strips carry their bounds
+    (``in_set_bounds``)."""
+    import statistics as st
+
+    import numpy as np
+    import torch
+
+    def border(x0, y0, x1, y1, _):
+        sub = dwells[y0:y1, x0:x1]
+        return np.concatenate([sub[0], sub[-1], sub[1:-1, 0],
+                               sub[1:-1, -1]])
+
+    reach = [border(*r).max() == p.max_dwell for r in rects]
+    rng = np.random.default_rng(14)
+    picked = {}
+    for want, k in ((True, MS_TIMED_IN_SET), (False, MS_TIMED_OTHER)):
+        pool = [r for r, hit in zip(rects, reach) if hit == want]
+        picked[want] = [pool[i] for i in sorted(rng.choice(
+            len(pool), min(k, len(pool)), replace=False))]
+    timed = {"kernel": [], "full_iteration": []}
+    in_set = {"kernel": [], "full_iteration": []}
+    in_set_planes = []
+    for hit, chosen in picked.items():
+        for rect in chosen:
+            c_re, c_im = border_strip(rect, p, dev)
+            builds = mandelbrot_builds(c_re, c_im, p.max_dwell)
+            got = {k: fn() for k, fn in builds.items()}
+            want = torch.from_numpy(border(*rect)).to(dev)
+            n = want.shape[0]
+            if not (torch.equal(got["kernel"][0, :n], want) and
+                    torch.equal(got["full_iteration"], got["kernel"])):
+                raise AssertionError(f"mandelbrot, the border of {rect}: "
+                                     f"dwells differ from the naive render "
+                                     f"or between the builds")
+            for name, fn in builds.items():
+                t = cuda_time_ms(fn, reps=3, warmup=1)
+                timed[name].append(t)
+                if hit:
+                    in_set[name].append(t)
+            if hit:
+                in_set_planes.append((c_re, c_im, got["kernel"]))
+    if not in_set["kernel"]:
+        raise AssertionError("no main-path border strip reaches the set")
+    med = {k: st.median(v) for k, v in in_set.items()}
+    bounds = in_set_bounds(in_set_planes, cap, clock_hz)
+    med_bound = {k: st.median(v) for k, v in bounds.items()}
+    out = {"launch_ms": {k: duration_stats(v) for k, v in timed.items()},
+           "in_set": {"samples": len(in_set["kernel"]),
+                      "rects": [list(map(int, r)) for r in picked[True]],
+                      "median_ms": med, "speedup": med["full_iteration"] /
+                      med["kernel"], "median_bound_ms": med_bound,
+                      "kernel_ms": in_set["kernel"],
+                      "full_iteration_ms": in_set["full_iteration"],
+                      "bound_ms": bounds}}
+    for k, v in out["launch_ms"].items():
+        log(f"[ms] {len(timed[k])} main-path border strips sampled by "
+            f"rectangle, each alone, {k}: {v}")
+    log(f"[ms] {len(in_set['kernel'])} in-set border strips: median "
+        f"kernel {med['kernel']:.4f} ms, full iteration "
+        f"{med['full_iteration']:.4f} ms ({out['in_set']['speedup']:.1f}x); "
+        f"median bound {med_bound['kernel']:.5f} ms (cycle exit, to "
+        f"{cap}), {med_bound['full_iteration']:.5f} ms (dwell sum); median "
+        f"latency bound {med_bound['kernel_latency']:.5f} ms (the slowest "
+        f"orbit's iterations under the cycle exit, to {cap}), "
+        f"{med_bound['full_iteration_latency']:.5f} ms (its dwell)")
+    return out
+
+
+def in_set_bounds(planes: list, cap: int, clock_hz: float) -> dict:
+    """The bounds of each in-set sample (its padded plane and its dwells
+    at the main path's max_iter) for both builds.  The throughput bound:
+    12 bytes a point against 8 operations an iteration, counting for the
+    full iteration every dwell, and for the kernel what a plain run of its
+    schedule to ``cap`` needs (points still running at ``cap`` counted at
+    ``cap``, so this bound is lower still than the kernel's work).  The
+    latency bound (``*_latency``): the iterations of the sample's slowest
+    point, counted the same way, times ``MS_CHAIN_CYCLES`` at the card's
+    top SM clock."""
     import torch
     from repro_torch.kernels.mandelbrot.ops import cycle_check_every
     res = torch.cat([p[0].reshape(-1) for p in planes])[None]
     ims = torch.cat([p[1].reshape(-1) for p in planes])[None]
     _, iters = cycle_exit_run(res, ims, cap, cycle_check_every())
-    out = {"kernel": [], "full_iteration": []}
+    out = {"kernel": [], "full_iteration": [], "kernel_latency": [],
+           "full_iteration_latency": []}
     off = 0
     for _, _, dwell in planes:
         n = dwell.numel()
+        mine = iters[0, off:off + n]
         out["kernel"].append(bound_ms(n * MS_BYTES_PER_POINT, int(
-            iters[0, off:off + n].sum()) * MS_OPS_PER_ITER)[0])
+            mine.sum()) * MS_OPS_PER_ITER)[0])
         out["full_iteration"].append(bound_ms(n * MS_BYTES_PER_POINT, int(
             dwell.to(torch.int64).sum()) * MS_OPS_PER_ITER)[0])
+        for k, it in (("kernel_latency", mine), ("full_iteration_latency",
+                                                 dwell)):
+            out[k].append(int(it.max()) * MS_CHAIN_CYCLES / clock_hz * 1e3)
         off += n
     return out
 
@@ -861,8 +977,8 @@ def device_timeline(fn, kernel: str = "dwell_") -> tuple:
     copy and fill, so that work on concurrent streams counts once), the
     durations of every launch of the kernel whose name holds ``kernel``
     (``mandelbrot``'s by default), and the share of the wall time during
-    which at least one launch longer than ``MS_LONG_MS`` ran.  Returns
-    ``(fn's result, the record)``."""
+    which at least one launch longer than ``MS_LONG_MS`` ran; and the
+    durations by kernel name.  Returns ``(fn's result, the record)``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -888,11 +1004,17 @@ def device_timeline(fn, kernel: str = "dwell_") -> tuple:
     spans = [(e.start_ns() / 1e3, e.end_ns() / 1e3) for e in events]
     dwell = [s for s, e in zip(spans, events) if kernel in e.name()]
     long = [(a, b) for a, b in dwell if b - a > MS_LONG_MS * 1e3]
+    by_name: dict = {}
+    for (a, b), e in zip(spans, events):
+        m = re.search(rf"\w*{re.escape(kernel)}\w*", e.name())
+        if m:
+            by_name.setdefault(m.group(0), []).append((b - a) / 1e3)
     wall_us = wall * 1e6
     rec = {"wall_s": wall, "device_ops": len(spans),
            "busy_s": union_us(spans) / 1e6,
            "idle_share": 1 - union_us(spans) / wall_us,
            "launches": duration_stats([(b - a) / 1e3 for a, b in dwell]),
+           "by_name": {k: duration_stats(v) for k, v in by_name.items()},
            "long_launch_union_s": union_us(long) / 1e6,
            "long_launch_share": union_us(long) / wall_us}
     if not dwell:
@@ -989,7 +1111,8 @@ def mariani_silver_over(dwells, p):
     band is thinner than a pixel, a rectangle's border can miss it and the
     fill paints over it, so this image may differ from ``dwells``; those
     pixels are the algorithm's, not an error of the port.  Returns the
-    image and the number of rectangles evaluated (the run's tasks).
+    image and the rectangles evaluated, ``(x0, y0, x1, y1, depth)`` (one
+    a task).
     """
     import numpy as np
 
@@ -999,9 +1122,9 @@ def mariani_silver_over(dwells, p):
     ys = np.linspace(0, p.height, sd + 1).astype(int)
     todo = [(xs[j], ys[i], xs[j + 1], ys[i + 1], 0)
             for i in range(sd) for j in range(sd)]
-    tasks = 0
+    rects = []
     while todo:
-        tasks += len(todo)
+        rects.extend(todo)
         nxt = []
         for x0, y0, x1, y1, depth in todo:
             sub = dwells[y0:y1, x0:x1]
@@ -1018,7 +1141,7 @@ def mariani_silver_over(dwells, p):
                            for i in range(p.split) for j in range(p.split)
                            if cx[j + 1] > cx[j] and cy[i + 1] > cy[i])
         todo = nxt
-    return out, tasks
+    return out, rects
 
 
 def ms_params(side: int, max_dwell: int):
@@ -1035,7 +1158,7 @@ def ms_params(side: int, max_dwell: int):
                                max_dwell=max_dwell)
 
 
-def phase_ms(dev, side: int, max_dwell: int) -> dict:
+def phase_ms(dev, side: int, max_dwell: int, clock_hz: float) -> dict:
     import numpy as np
     import torch
     from repro_torch.algorithms import ms_spec, naive_render
@@ -1083,7 +1206,8 @@ def phase_ms(dev, side: int, max_dwell: int) -> dict:
     t0 = time.monotonic()
     oracle = naive_render(p, device=dev)
     naive_s = time.monotonic() - t0
-    expected, tasks = mariani_silver_over(oracle, p)
+    expected, rects = mariani_silver_over(oracle, p)
+    tasks = len(rects)
     sampled = int((expected != oracle).sum())
     log(f"[ms] naive_render: {naive_s:.3f} s, "
         f"{int(oracle.astype(np.int64).sum())} iterations; Mariani-Silver "
@@ -1096,6 +1220,8 @@ def phase_ms(dev, side: int, max_dwell: int) -> dict:
                 f"naive_render on {int((img != expected).sum())} pixels")
     log(f"[ms] both images equal Mariani-Silver over naive_render (and "
         f"naive_render itself on all but those {sampled} pixels)")
+    samples.update(time_border_strips(oracle, p, rects, dev, MS_SAMPLE_CAP,
+                                      clock_hz))
     return {"launches": {k: r["launches"] for k, r in runs.items()},
             "side": side, "max_dwell": max_dwell,
             "naive_render_s": naive_s, "pixels_off_naive": sampled,
@@ -1121,7 +1247,8 @@ def phase_ms_paper_size(dev) -> dict:
     t0 = time.monotonic()
     dwells = naive_render(p, device=dev)
     naive_s = time.monotonic() - t0
-    image, tasks = mariani_silver_over(dwells, p)
+    image, rects = mariani_silver_over(dwells, p)
+    tasks = len(rects)
     sampled = int((image != dwells).sum())
     log(f"[ms] paper size {p.width}x{p.height} sd {p.initial_subdivision} "
         f"max_dwell {p.max_dwell}: naive_render {naive_s:.3f} s, "
@@ -1148,6 +1275,537 @@ def phase_ms_paper_size(dev) -> dict:
         f"{k} {v:.3f} ms" for k, v in builds_ms.items()))
     return {"naive_render_s": naive_s, "tasks": tasks,
             "pixels_off_naive": sampled, "builds_ms": builds_ms}
+
+
+# -- betweenness centrality at the paper's scale 17 ------------------------------
+
+#: fixed shapes of the level kernels: (R-MAT scale, sources); the last is a
+#: main-path task's (the paper graph, one 1,024-source block)
+BC_FIXED = ((12, 256), (17, 64), (17, 1024))
+#: sources of the paper graph held against the host's Brandes, in workers
+BC_ORACLE_SOURCES = 8
+BC_ORACLE_WORKERS = 4
+#: main-path tasks replayed through the plain version
+BC_REPLAY_TASKS = 3
+#: threads of the local pool of the fused run: it fuses up to this many
+#: queued blocks into one ``execute_batch`` call (``run_irregular``)
+BC_LOCAL_WIDTH = 4
+#: the reference package's tolerances (tests/test_betweenness.py)
+BC_RTOL, BC_ATOL = 1e-4, 1e-3
+#: spin (GPU clock cycles, about 0.5 ms) queued before each timed level,
+#: so that its start event waits on the card and not on the host's
+#: launch path
+BC_SPIN_CYCLES = 1_000_000
+
+
+def rmat_edges(scale: int, edge_factor: int, a: float, b: float, c: float,
+               seed: int) -> tuple:
+    """The R-MAT digraph's edge set, sampled on the host with the
+    reference's draws in the reference's order, independently of the
+    port: ``(n, keys)``, keys the sorted distinct ``src * n + dst``."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    n = 1 << scale
+    m = edge_factor * n
+    src = np.zeros(m, np.int64)
+    dst = np.zeros(m, np.int64)
+    for _ in range(scale):
+        r = rng.rand(m)
+        q_b = (r >= a) & (r < a + b)
+        q_c = (r >= a + b) & (r < a + b + c)
+        q_d = r >= a + b + c
+        src = 2 * src + (q_c | q_d)
+        dst = 2 * dst + (q_b | q_d)
+    keep = src != dst
+    perm = rng.permutation(n)
+    return n, np.unique(perm[src[keep]] * n + perm[dst[keep]])
+
+
+def brandes_host(n: int, indptr: list, indices: list, s: int) -> list:
+    """Brandes' dependencies of source ``s`` on every vertex, queue-based,
+    in float64 (0 at ``s`` itself), over Python lists of a CSR."""
+    from collections import deque
+    sigma = [0.0] * n
+    dist = [-1] * n
+    sigma[s], dist[s] = 1.0, 0
+    order, queue = [], deque([s])
+    while queue:
+        v = queue.popleft()
+        order.append(v)
+        dv, sv = dist[v] + 1, sigma[v]
+        for w in indices[indptr[v]:indptr[v + 1]]:
+            if dist[w] < 0:
+                dist[w] = dv
+                queue.append(w)
+            if dist[w] == dv:
+                sigma[w] += sv
+    delta = [0.0] * n
+    for v in reversed(order):
+        dv, acc = dist[v] + 1, 0.0
+        for w in indices[indptr[v]:indptr[v + 1]]:
+            if dist[w] == dv:
+                acc += (1.0 + delta[w]) / sigma[w]
+        delta[v] = sigma[v] * acc
+    delta[s] = 0.0
+    return delta
+
+
+def bc_oracle(rmat: tuple, sources: list) -> dict:
+    """Runs in a worker process, with nothing of the port: the graph from
+    ``rmat_edges``, Brandes from each source (``brandes_host``), and
+    scipy's BFS distances.  Returns the summed dependencies, and per
+    source the dependency sum beside the distance identity's side,
+    sum over reached t != s of (d(s, t) - 1); and a digest of the edge
+    set."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import shortest_path
+    n, keys = rmat_edges(*rmat)
+    src, dst = keys // n, keys % n
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(src, minlength=n), out=indptr[1:])
+    ip, ix = indptr.tolist(), dst.tolist()
+    adj = csr_matrix((np.ones(keys.size), (src, dst)), shape=(n, n))
+    dists = shortest_path(adj, directed=True, unweighted=True,
+                          indices=sources)
+    total = np.zeros(n)
+    per = []
+    for s, d in zip(sources, dists):
+        delta = np.asarray(brandes_host(n, ip, ix, s))
+        total += delta
+        reached = np.isfinite(d)
+        reached[s] = False
+        per.append({"source": s, "oracle_delta_sum": float(delta.sum()),
+                    "distance_identity": float((d[reached] - 1).sum()),
+                    "reached": int(reached.sum()),
+                    "depth": int(d[np.isfinite(d)].max())})
+    return {"delta": total, "per_source": per,
+            "edges_sha1": hashlib.sha1(keys.tobytes()).hexdigest()}
+
+
+class BCTwinLevels:
+    """Level steps for ``bc_batch(steps=...)``: each level runs through
+    the kernel and, on a twin state, through the plain version, held bit
+    for bit.  Per level it records what the bound needs: the pairs the
+    level must read and write (frontier and joined forward; on the level
+    and a level below backward), the additions its sums make (every edge
+    of a frontier pair forward, of a level pair backward: an upper
+    count), and ``torch.sparse.mm`` of the CSR adjacency with the level's
+    masked operand (the library yardstick of the product alone: the port
+    never calls it)."""
+
+    def __init__(self, g):
+        import torch
+
+        def adjacency(indptr, indices):
+            return torch.sparse_csr_tensor(
+                indptr.long(), indices.long(),
+                torch.ones(g.n_edges, device=indptr.device), size=(g.n, g.n),
+                check_invariants=False)
+        self.a_in = adjacency(g.in_indptr, g.in_indices)
+        self.a_out = adjacency(g.out_indptr, g.out_indices)
+        self.out_deg = (g.out_indptr[1:] - g.out_indptr[:-1]).double()
+        self.in_deg = (g.in_indptr[1:] - g.in_indptr[:-1]).double()
+        self.fwd, self.bwd = [], []
+
+    def forward(self, indptr, indices, dist, sigma, live, level, *,
+                backend=None):
+        import torch
+        from repro_torch.kernels.bc.ops import bc_forward_level
+        if level == 0:
+            self.twin, self.tdelta = (dist.clone(), sigma.clone()), None
+        tdist, tsigma = self.twin
+        on = dist == level
+        x = torch.where(on, sigma, 0.0)
+        rec = {"level": level, "frontier": int(on.sum()),
+               "ops": float(on.sum(dim=1).double() @ self.out_deg),
+               "library_ms": cuda_time_ms(lambda: torch.sparse.mm(self.a_in,
+                                                                   x))}
+        f = bc_forward_level(indptr, indices, dist, sigma, live, level,
+                             backend="cuda")
+        t = bc_forward_level(indptr, indices, tdist, tsigma, live, level,
+                             backend="ref")
+        torch.cuda.synchronize()
+        if not (torch.equal(f, t) and torch.equal(dist, tdist) and
+                torch.equal(sigma, tsigma)):
+            raise AssertionError(
+                f"bc_forward_level {level} ({dist.shape[0]} vertices, "
+                f"{dist.shape[1]} sources): kernel differs from the plain "
+                f"version on {int((dist != tdist).sum())} dist and "
+                f"{int((sigma != tsigma).sum())} sigma entries")
+        rec.update(joined=int((dist == level + 1).sum()),
+                   live_sources=int(f.sum()))
+        self.fwd.append(rec)
+        return f
+
+    def backward(self, indptr, indices, dist, sigma, delta, level, *,
+                 backend=None):
+        import torch
+        from repro_torch.kernels.bc.ops import bc_backward_level
+        if self.tdelta is None:
+            self.tdelta = delta.clone()
+        on = dist == level
+        coeff = torch.where(on, (1.0 + delta) /
+                            torch.where(sigma > 0, sigma, 1.0), 0.0)
+        n_on = on.sum(dim=1).double()
+        rec = {"level": level, "on_level": int(n_on.sum()),
+               "updated": int((dist == level - 1).sum()),
+               "ops": float(n_on @ self.in_deg + 2 * n_on.sum()),
+               "library_ms": cuda_time_ms(lambda: torch.sparse.mm(self.a_out,
+                                                                   coeff))}
+        bc_backward_level(indptr, indices, dist, sigma, delta, level,
+                          backend="cuda")
+        bc_backward_level(indptr, indices, dist, sigma, self.tdelta, level,
+                          backend="ref")
+        torch.cuda.synchronize()
+        if not torch.equal(delta, self.tdelta):
+            raise AssertionError(
+                f"bc_backward_level {level} ({dist.shape[0]} vertices, "
+                f"{dist.shape[1]} sources): kernel differs from the plain "
+                f"version on {int((delta != self.tdelta).sum())} delta "
+                f"entries (max |d| "
+                f"{float((delta - self.tdelta).abs().max())})")
+        self.bwd.append(rec)
+        return delta
+
+
+class BCTimedLevels:
+    """Level steps for ``bc_batch(steps=...)`` that run each level as
+    asked, behind a spin and between two CUDA events, so that its start
+    waits on the card and not on the host's launch path."""
+
+    def __init__(self):
+        self.fwd, self.bwd = [], []
+
+    @staticmethod
+    def _timed(spans: list, step, *args, **kw):
+        import torch
+        torch.cuda._sleep(BC_SPIN_CYCLES)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = step(*args, **kw)
+        b.record()
+        spans.append((a, b))
+        return out
+
+    def forward(self, *args, **kw):
+        from repro_torch.kernels.bc.ops import bc_forward_level
+        return self._timed(self.fwd, bc_forward_level, *args, **kw)
+
+    def backward(self, *args, **kw):
+        from repro_torch.kernels.bc.ops import bc_backward_level
+        return self._timed(self.bwd, bc_backward_level, *args, **kw)
+
+    def ms(self) -> tuple:
+        import torch
+        torch.cuda.synchronize()
+        return tuple([a.elapsed_time(b) for a, b in spans]
+                     for spans in (self.fwd, self.bwd))
+
+
+def bc_sweep_times(g, src, backend: str, reps: int) -> tuple:
+    """Per-level CUDA-event medians of ``reps`` sweeps of ``bc_batch``
+    through ``backend`` (forward levels, then backward levels in the
+    order they run)."""
+    from repro_torch.algorithms import bc_batch
+    fwd, bwd = [], []
+    for _ in range(reps):
+        t = BCTimedLevels()
+        bc_batch(g, src, backend=backend, steps=(t.forward, t.backward))
+        f, b = t.ms()
+        fwd.append(f)
+        bwd.append(b)
+    return ([statistics.median(c) for c in zip(*fwd)],
+            [statistics.median(c) for c in zip(*bwd)])
+
+
+def bc_level_bounds(n: int, s: int, csr_bytes: int,
+                    twin: BCTwinLevels) -> None:
+    """Adds each level's bound to ``twin``'s records: its bytes at the
+    memory rate against its operations at the float32 rate.  The bytes a
+    level must move, 4 a value: forward, dist of every (vertex, source)
+    pair, sigma of each frontier pair, dist and sigma written for each
+    pair that joins; backward, dist of every pair, sigma and delta of
+    each pair on the level, sigma and delta read and delta written for
+    each pair a level below; and the CSR."""
+    for rec in twin.fwd:
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            4 * (n * s + rec["frontier"] + 2 * rec["joined"]) + csr_bytes,
+            rec["ops"])
+    for rec in twin.bwd:
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            4 * (n * s + 2 * rec["on_level"] + 3 * rec["updated"]) +
+            csr_bytes, rec["ops"])
+
+
+def bc_fixed_case(g, src, label: str) -> dict:
+    """The two level kernels on one sweep of ``bc_batch``: bit-equal to
+    the plain versions at every level; per level and per sweep (a
+    task's), kernel and plain times, bound and library time."""
+    from repro_torch.algorithms import bc_batch
+    twin = BCTwinLevels(g)
+    bc_batch(g, src, steps=(twin.forward, twin.backward))
+    bc_level_bounds(g.n, src.shape[0], (g.n + 1 + g.n_edges) * 4, twin)
+    kf, kb = bc_sweep_times(g, src, "cuda", reps=10)
+    pf, pb = bc_sweep_times(g, src, "ref", reps=3)
+    for recs, k, p in ((twin.fwd, kf, pf), (twin.bwd, kb, pb)):
+        for rec, km, pm in zip(recs, k, p):
+            rec.update(ms=km, plain_ms=pm)
+    out = {"label": label, "vertices": g.n, "edges": g.n_edges,
+           "sources": int(src.shape[0]), "levels": len(twin.fwd),
+           "forward": twin.fwd, "backward": twin.bwd}
+    for name, recs in (("bc_forward_level", twin.fwd),
+                       ("bc_backward_level", twin.bwd)):
+        tot = {k: sum(r[k] for r in recs)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        tot["bound_by"] = "bytes" if all(r["bound_by"] == "bytes"
+                                         for r in recs) else "operations"
+        tot["levels"] = len(recs)
+        tot["ms_per_level"] = tot["ms"] / len(recs)
+        out[name] = tot
+        log(f"[bc] {label}, {name}: {len(recs)} levels bit-equal to the "
+            f"plain version; a sweep (a task's) kernel {tot['ms']:.4f} ms "
+            f"({tot['ms_per_level']:.4f} ms a level), plain "
+            f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+            f"({tot['bound_by']}), sparse.mm {tot['library_ms']:.4f} ms; "
+            f"per level kernel ms " + " ".join(f"{r['ms']:.4f}" for r in recs)
+            + "; per level bound ms "
+            + " ".join(f"{r['bound_ms']:.4f}" for r in recs))
+    out["task_ms"] = out["bc_forward_level"]["ms"] + \
+        out["bc_backward_level"]["ms"]
+    return out
+
+
+def bc_task_tap(spec, block_ids: set, kept: dict):
+    """``spec`` with its task body wrapped: the (block, partial) of every
+    task whose first source id is in ``block_ids`` is kept."""
+    import dataclasses
+    execute = spec.execute
+
+    def tapped(block, shape):
+        key, partial = execute(block, shape)
+        if key in block_ids:
+            kept[key] = (block.copy(), partial)
+        return key, partial
+    return dataclasses.replace(spec, execute=tapped)
+
+
+def bc_fuse_tap(spec, sizes: list):
+    """``spec`` with its fused task body wrapped: the number of blocks of
+    every ``execute_batch`` call is appended to ``sizes``."""
+    import dataclasses
+    execute_batch = spec.execute_batch
+
+    def tapped(blocks, shape):
+        sizes.append(len(blocks))
+        return execute_batch(blocks, shape)
+    return dataclasses.replace(spec, execute_batch=tapped)
+
+
+def phase_bc(dev) -> dict:
+    """Betweenness centrality at the paper's scale 17: the port's
+    ``bc_batch`` held against an independent host Brandes and the
+    distance identity on sampled sources of the paper graph; the level
+    kernels at fixed shapes, timed once the oracle's workers have ended;
+    ``bc_spec(BC_PAPER, n_tasks=128, regenerate_graph=True)`` through
+    ``run_irregular`` on the elastic pool (the timed run), on a local
+    pool that fuses queued blocks into ``execute_batch`` calls, and on the
+    elastic pool under the profiler; sampled tasks of the first run
+    replayed through the plain versions."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+    from repro_torch.algorithms import (RMATParams, bc_batch, bc_spec,
+                                        rmat_graph)
+    from repro_torch.configs.paper_workloads import BC_PAPER, BC_PAPER_TASKS
+    from repro_torch.core import make_pool, run_irregular
+    from repro_torch.kernels import launches
+
+    p = BC_PAPER
+    t0 = time.monotonic()
+    host = rmat_graph(p)
+    regen_s = time.monotonic() - t0
+    n = host.n
+    out_deg = np.diff(host.out_indptr)
+    log(f"[bc] paper graph (scale {p.scale}, edge factor {p.edge_factor}, "
+        f"seed {p.seed}): {n} vertices, {host.n_edges} edges, largest "
+        f"out/in degree {out_deg.max()}/{np.diff(host.in_indptr).max()}; "
+        f"rmat_graph {regen_s:.3f} s on the host")
+    rng = np.random.default_rng(16)
+    oracle_src = sorted(int(v) for v in rng.choice(
+        np.flatnonzero(out_deg > 0), BC_ORACLE_SOURCES, replace=False))
+    rmat = (p.scale, p.edge_factor, p.a, p.b, p.c, p.seed)
+    jobs = [oracle_src[i::BC_ORACLE_WORKERS]
+            for i in range(BC_ORACLE_WORKERS)]
+    pool = ProcessPoolExecutor(BC_ORACLE_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = [pool.submit(bc_oracle, rmat, job) for job in jobs]
+        # the port's side of the gates, untimed, while the oracle runs
+        g17 = host.to(dev)
+        got = bc_batch(g17, torch.tensor(oracle_src, device=dev)).cpu().numpy()
+        port_sums = {s: float(bc_batch(g17, torch.tensor([s], device=dev))
+                              .cpu().numpy().astype(np.float64).sum())
+                     for s in oracle_src}
+        oracle = [f.result() for f in futures]
+    finally:
+        pool.shutdown(cancel_futures=True)
+    oracle_s = time.monotonic() - t0
+
+    # -- the gates that do not trust the port --------------------------------
+    keys = (np.repeat(np.arange(n, dtype=np.int64), out_deg) * n +
+            host.out_indices)
+    if any(o["edges_sha1"] != hashlib.sha1(keys.tobytes()).hexdigest()
+           for o in oracle):
+        raise AssertionError("rmat_graph's edge set differs from the host's "
+                             "own R-MAT sampling")
+    want = sum(o["delta"] for o in oracle)
+    err = np.abs(got.astype(np.float64) - want)
+    if not np.allclose(got, want, rtol=BC_RTOL, atol=BC_ATOL):
+        raise AssertionError(
+            f"BC of {BC_ORACLE_SOURCES} sources differs from the host's "
+            f"Brandes on {int((err > BC_ATOL + BC_RTOL * np.abs(want)).sum())}"
+            f" vertices (max |d| {err.max():.3e})")
+    per = sorted((r for o in oracle for r in o["per_source"]),
+                 key=lambda r: r["source"])
+    for r in per:
+        r["port_delta_sum"] = port_sums[r["source"]]
+        for side in ("port_delta_sum", "oracle_delta_sum"):
+            if not np.isclose(r[side], r["distance_identity"], rtol=BC_RTOL,
+                              atol=BC_ATOL):
+                raise AssertionError(f"source {r['source']}: {side} "
+                                     f"{r[side]} != sum of (d - 1) "
+                                     f"{r['distance_identity']}")
+    log(f"[bc] {BC_ORACLE_SOURCES} sampled sources of the paper graph: "
+        f"bc_batch on the card within rtol {BC_RTOL}, atol {BC_ATOL} of the "
+        f"host's float64 Brandes (max |d| {err.max():.3e}, largest value "
+        f"{want.max():.6e}); the sum of each source's dependencies equals "
+        f"the sum of (d - 1) over the vertices it reaches ("
+        + ", ".join(f"{r['source']}: {r['reached']} reached, depth "
+                    f"{r['depth']}, {r['port_delta_sum']:.6e} / "
+                    f"{r['distance_identity']:.6e}" for r in per)
+        + f"); the edge set equals the host's own sampling; oracle "
+        f"{oracle_s:.3f} s")
+
+    # -- the kernels at fixed shapes, with no other process on the host ------
+    fixed = []
+    for scale, s in BC_FIXED:
+        g = g17 if scale == p.scale else rmat_graph(
+            RMATParams(scale=scale, seed=p.seed)).to(dev)
+        src = torch.arange(s, device=dev) if s == 1024 else \
+            torch.from_numpy(np.random.default_rng(scale).choice(
+                g.n, s, replace=False)).to(dev)
+        label = (f"scale {scale}, {s} sources"
+                 + (" (main-path block 0)" if s == 1024 else ""))
+        fixed.append(bc_fixed_case(g, src, label))
+        torch.cuda.empty_cache()
+
+    # -- the main path -------------------------------------------------------
+    blocks = np.array_split(np.arange(n, dtype=np.int32), BC_PAPER_TASKS)
+    picked = {int(blocks[i][0]) for i in np.random.default_rng(17).choice(
+        BC_PAPER_TASKS, BC_REPLAY_TASKS, replace=False)}
+    kept: dict = {}
+    fused: list = []
+
+    def path(name: str):
+        """``run_irregular`` of the paper's BC spec, as run ``name``: the
+        elastic pool's tasks are tapped for the replay, the local pool's
+        fused calls counted."""
+        def go():
+            spec = bc_spec(p, n_tasks=BC_PAPER_TASKS, regenerate_graph=True,
+                           device=dev)
+            if name == "local fused":
+                with make_pool("local", max_concurrency=BC_LOCAL_WIDTH) as lp:
+                    return run_irregular(lp, bc_fuse_tap(spec, fused),
+                                         batching=True)
+            with elastic_pool() as ep:
+                return run_irregular(
+                    ep, bc_task_tap(spec, picked, kept)
+                    if name == "elastic" else spec)
+        if name == "elastic profiled":
+            return lambda: device_timeline(go, "_level_kernel")
+        return go
+
+    runs, maps = {}, {}
+    for name in ("elastic", "local fused", "elastic profiled"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r, wall, n_fwd = run_path(f"BC {name}", "bc_forward_level",
+                                  path(name))
+        n_bwd = launches("bc_backward_level")
+        if n_bwd <= 0:
+            raise AssertionError(f"BC {name}: bc_backward_level not launched")
+        if name == "elastic profiled":
+            r, prof = r
+        out = r.output
+        if out.shape != (n,) or not np.isfinite(out).all() or \
+                (out < 0).any():
+            raise AssertionError(f"BC {name}: map of shape {out.shape} not "
+                                 f"finite and non-negative")
+        maps[name] = out
+        runs[name] = {"seconds": wall, "tasks": r.tasks,
+                      "sources_per_s": n / wall,
+                      "launches": {"bc_forward_level": n_fwd,
+                                   "bc_backward_level": n_bwd},
+                      "peak_memory_gb": torch.cuda.max_memory_allocated()
+                      / 1e9}
+        log(f"[bc] BC_PAPER, {BC_PAPER_TASKS} tasks, regenerate_graph, "
+            f"{name}: {r.tasks} tasks, {wall:.3f} s, {n / wall:.1f} "
+            f"sources/s, {n_fwd} forward and {n_bwd} backward level "
+            f"launches, peak device memory "
+            f"{runs[name]['peak_memory_gb']:.2f} GB; map sum {out.sum():.6e}, "
+            f"max {out.max():.6e}")
+    if max(fused, default=0) < 2:
+        raise AssertionError(f"BC local fused: no execute_batch call fused "
+                             f"two blocks ({fused})")
+    runs["local fused"]["fused_calls"] = len(fused)
+    runs["local fused"]["blocks_per_call"] = {
+        k: fused.count(k) for k in sorted(set(fused))}
+    prof["device_ms_per_task"] = sum(
+        v["sum_ms"] for v in prof["by_name"].values()) / BC_PAPER_TASKS
+    prof["overhead"] = (runs["elastic profiled"]["seconds"] /
+                        runs["elastic"]["seconds"] - 1)
+    log(f"[bc] local fused: {len(fused)} execute_batch calls, blocks per "
+        f"call {runs['local fused']['blocks_per_call']}; the "
+        f"{BC_PAPER_TASKS}-task run under the profiler: "
+        f"{prof['device_ops']} device operations, busy {prof['busy_s']:.3f} "
+        f"s, idle share {prof['idle_share']:.4f}, wall {prof['overhead']:+.4f}"
+        f" against the unprofiled run; level kernels "
+        f"{prof['device_ms_per_task']:.3f} ms a task; "
+        + "; ".join(f"{k}: {v}" for k, v in prof["by_name"].items()))
+    # keyed partials, each a deterministic function of its block, summed in
+    # key order: the elastic runs agree bit for bit; fusing sums a call's
+    # blocks in another order
+    if not np.array_equal(maps["elastic"], maps["elastic profiled"]):
+        raise AssertionError("BC: the two elastic maps differ")
+    a, b = maps["elastic"], maps["local fused"]
+    if not np.allclose(a, b, rtol=BC_RTOL, atol=BC_ATOL):
+        raise AssertionError("BC: the elastic and the fused maps disagree")
+    log(f"[bc] the two elastic maps are bit-equal; the fused map agrees "
+        f"within rtol {BC_RTOL}, atol {BC_ATOL} (max |d| "
+        f"{float(np.abs(a - b).max()):.3e})")
+
+    # sampled main-path tasks, again through the plain versions
+    if len(kept) != BC_REPLAY_TASKS:
+        raise AssertionError(f"BC: kept {len(kept)} sampled tasks")
+    for key, (block, partial) in sorted(kept.items()):
+        ref = bc_batch(g17, torch.from_numpy(block).to(dev),
+                       backend="ref").cpu().numpy()
+        if not np.array_equal(ref.view(np.uint32), partial.view(np.uint32)):
+            raise AssertionError(
+                f"BC task {key}: the main path's partial differs from the "
+                f"plain version's on {int((ref != partial).sum())} vertices")
+    log(f"[bc] {len(kept)} sampled main-path tasks (blocks "
+        f"{sorted(kept)}) bit-equal to the plain version")
+    torch.cuda.empty_cache()
+    return {"graph": {"vertices": n, "edges": host.n_edges,
+                      "rmat_graph_s": regen_s},
+            "fixed": fixed, "runs": runs,
+            "replayed_blocks": sorted(kept), "oracle_sources": per,
+            "oracle_max_abs_err": float(err.max()), "profile": prof,
+            "launches": {k: r["launches"] for k, r in runs.items()}}
 
 
 # -- the model slice: gemma3-1b prefill, decode and serving ----------------------
@@ -1665,8 +2323,9 @@ def main() -> int:
                "mandelbrot": phase_kernel_mandelbrot(dev)}
     flash_fixed = phase_flash_fixed(dev)
     uts = phase_uts(dev, UTS_DEPTH)
-    ms = phase_ms(dev, MS_SIDE, MS_DWELL)
+    ms = phase_ms(dev, MS_SIDE, MS_DWELL, sha1["sm_clock_hz"])
     paper = phase_ms_paper_size(dev)
+    bc = phase_bc(dev)
     model = phase_model(dev)
     # run_path has already required a launch on every path that runs a
     # hand kernel
@@ -1677,6 +2336,21 @@ def main() -> int:
     kernels["mandelbrot"]["in_set_main_path"] = {
         k: ms["samples"]["in_set"][k] for k in ("samples", "median_ms",
                                                 "speedup", "median_bound_ms")}
+    # the BC lines are measured at a main-path task's shape (the paper
+    # graph, block 0's 1,024 sources), per task: every level summed
+    bc_task = bc["fixed"][-1]
+    for name in ("bc_forward_level", "bc_backward_level"):
+        k = bc_task[name]
+        kernels[name] = {
+            "max_abs_err": 0.0, "matched": True,
+            "launches_by_path": {path: n[name] for path, n in
+                                 bc["launches"].items()},
+            **{x: k[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "levels", "ms_per_level")},
+            "shape": f"CSR {bc_task['vertices']} vertices, "
+                     f"{bc_task['edges']} edges; state [{bc_task['vertices']}"
+                     f", {bc_task['sources']}]; a task's {k['levels']} "
+                     f"levels summed"}
     # the flash line is measured on the prefill's own operands: a global
     # (causal, S = 32,768) layer, with the local (window 512) one beside it
     glob, loc = (model["main_path_operands"][k] for k in ("global", "local"))
@@ -1704,14 +2378,15 @@ def main() -> int:
                 "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
                | {x: k[x] for x in ("local_layer", "full_iteration_ms",
                                     "bound_dwell_sum_ms", "in_set_main_path",
-                                    "bound_loose_ms")
+                                    "bound_loose_ms", "levels",
+                                    "ms_per_level")
                   if x in k}
                for name, k in kernels.items()]
     report = {"card": card, "device": torch.cuda.get_device_name(0),
               "seconds": time.monotonic() - t_start, "build": build,
               "kernels": kernels,
               "flash_fixed_shapes": flash_fixed, "uts": uts, "ms": ms,
-              "ms_paper_size": paper, "model": model}
+              "ms_paper_size": paper, "bc": bc, "model": model}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"[done] {report['seconds']:.1f} s; report in "

@@ -1,6 +1,6 @@
 """Workload configurations of the port.
 
-``paper_workloads`` holds the paper's UTS and Mariani-Silver rows.  The
+``paper_workloads`` holds the paper's UTS, Mariani-Silver and BC rows.  The
 architecture registry (``--arch <id>``) is the counterpart of
 ``repro.configs``: the same ids in the same order, of which the port
 carries the configs it can run so far.  An id whose config is not ported

@@ -53,6 +53,15 @@ def test_both_kernels_registered():
     assert {"uts_hash", "mandelbrot"} <= set(registered_kernels())
 
 
+def test_bc_level_ops_registered():
+    assert {"bc_forward_level", "bc_backward_level"} <= \
+        set(registered_kernels())
+    for name in ("bc_forward_level", "bc_backward_level"):
+        op = get_kernel(name)
+        # the ops update their state in place: dispatch must pad nothing
+        assert op.arg_dims == () and op.out_dims == ()
+
+
 def test_get_kernel_unknown_raises():
     with pytest.raises(ValueError, match="unknown kernel"):
         get_kernel("does_not_exist")

@@ -1,8 +1,8 @@
-"""The port stands alone: it runs its main paths (UTS, Mariani-Silver, and
-the model's prefill, decode and serving loop) without importing jax or
-any module of the reference package, no source file of it (nor
-``chip_smoke.py``) imports either, and ``device=None`` never falls back
-to the CPU."""
+"""The port stands alone: it runs its main paths (UTS, Mariani-Silver,
+betweenness centrality, and the model's prefill, decode and serving
+loop) without importing jax or any module of the reference package, no
+source file of it (nor ``chip_smoke.py``) imports either, and
+``device=None`` never falls back to the CPU."""
 import json
 import os
 import re
@@ -29,8 +29,10 @@ def _one_torch_thread():
 _PROBE = r"""
 import json, sys
 import numpy as np
-from repro_torch.algorithms import (MSParams, UTSParams, ms_spec,
-                                    naive_render, uts_sequential, uts_spec)
+from repro_torch.algorithms import (MSParams, RMATParams, UTSParams,
+                                    bc_single_node, bc_spec, ms_spec,
+                                    naive_render, rmat_graph, uts_sequential,
+                                    uts_spec)
 from repro_torch.core import make_pool, run_irregular
 n = uts_sequential(UTSParams(max_depth=5), device="cpu")
 p = MSParams(width=32, height=32, max_dwell=32, initial_subdivision=2,
@@ -39,7 +41,11 @@ with make_pool("elastic", max_concurrency=4, invoke_overhead=0.0,
                invoke_rate_limit=None) as pool:
     r = run_irregular(pool, uts_spec(UTSParams(max_depth=5), device="cpu"))
     m = run_irregular(pool, ms_spec(p, device="cpu"))
+    b = run_irregular(pool, bc_spec(RMATParams(scale=5), n_tasks=4,
+                                    device="cpu"))
 same = bool(np.array_equal(m.output["image"], naive_render(p, device="cpu")))
+bc_same = bool(np.array_equal(b.output, bc_single_node(
+    rmat_graph(RMATParams(scale=5)), n_tasks=4, device="cpu")))
 import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.serve import serve
@@ -57,6 +63,7 @@ rep = serve("gemma3-1b", smoke=True, n_requests=3, n_slots=2, max_seq=32,
             device="cpu")
 print(json.dumps({
     "uts": n, "uts_pool": r.output, "ms_equal": same,
+    "bc_equal": bc_same, "bc_tasks": b.tasks,
     "prefill": list(logits.shape), "decode": list(step.shape),
     "served": rep["requests"],
     "jax": sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")),
@@ -75,6 +82,7 @@ def test_main_path_runs_without_jax_or_repro():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["uts"] == 416 and res["uts_pool"] == 416
     assert res["ms_equal"]
+    assert res["bc_equal"] and res["bc_tasks"] == 4
     assert res["prefill"] == res["decode"] == [1, 256]
     assert res["served"] == 3
     assert res["jax"] == []

@@ -66,13 +66,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    sampling, whose edge set must equal the port's), and each source's
    dependency sum against the sum of (d - 1) over the vertices it reaches
    (scipy's BFS distances); once those workers have ended, the two level
-   kernels (``bc_level.cu``) against their plain versions, bit for bit
-   after every level of ``bc_batch``'s own loop (its ``steps`` hook), on
-   a scale-12 graph with 256 sources and on the paper graph with 64 and
-   with 1,024 sources (a main-path task's block), with CUDA-event times
-   per level (median of 10), the bytes bound, and ``torch.sparse.mm`` of
-   the CSR adjacency with the level's operand (the product alone, timed,
-   never called by the port); then ``bc_spec(BC_PAPER, n_tasks=128,
+   kernels (``bc_level.cu``) against their plain versions, the whole
+   state (bit-packed masks, level-ordered sigma and coeff, delta) bit for
+   bit after every level of ``bc_batch``'s own loop (its ``steps`` hook),
+   on a scale-12 graph with 256 sources and on the paper graph with 64
+   and with 1,024 sources (a main-path task's block), with CUDA-event
+   times per level (median of 10), the bytes bound (one bit a pair to
+   know which pairs are on duty; beside it the bound of a design that
+   reads dist, 4 bytes a pair, to find them), and
+   ``torch.sparse.mm`` of the CSR adjacency with the level's operand (the
+   product alone, timed, never called by the port); the build fails if
+   ``bc_level`` spills; then ``bc_spec(BC_PAPER, n_tasks=128,
    regenerate_graph=True)`` through ``run_irregular`` three times: on the
    elastic pool (the timed run, sources per second), on a local pool of 4
    threads with batching, which fuses queued blocks into
@@ -312,6 +316,13 @@ def phase_build() -> dict:
         for line in _build.compiler_report(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    # the BC level kernels keep their accumulators in registers
+    spills = [int(b) for b in re.findall(
+        r"(\d+) bytes spill (?:stores|loads)",
+        _build.compiler_report("bc_level"))]
+    if not spills or any(spills):
+        raise AssertionError(f"bc_level: spill bytes {spills} in the "
+                             f"compiler's report (or no report)")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
 
     def disassemble(name: str) -> str:
@@ -344,7 +355,7 @@ def phase_build() -> dict:
         raise AssertionError("flash_attention: no HGMMA in its machine code; "
                              "its products are not on the tensor cores")
     return {"flash_sass": counts, "flash_tiles": list(tiles),
-            "sha1_sass": sha1}
+            "sha1_sass": sha1, "bc_level_spill_bytes": sum(spills)}
 
 
 def _hashlib_digest(parent: list, ix: int) -> list:
@@ -1279,9 +1290,10 @@ def phase_ms_paper_size(dev) -> dict:
 
 # -- betweenness centrality at the paper's scale 17 ------------------------------
 
-#: fixed shapes of the level kernels: (R-MAT scale, sources); the last is a
-#: main-path task's (the paper graph, one 1,024-source block)
-BC_FIXED = ((12, 256), (17, 64), (17, 1024))
+#: fixed shapes of the level kernels: (R-MAT scale, sources); the first is
+#: a task of BC_SCALED (its graph, 8 sources: S' = 32, one word a vertex),
+#: the last a main-path task's (the paper graph, one 1,024-source block)
+BC_FIXED = ((8, 8), (12, 256), (17, 64), (17, 1024))
 #: sources of the paper graph held against the host's Brandes, in workers
 BC_ORACLE_SOURCES = 8
 BC_ORACLE_WORKERS = 4
@@ -1385,14 +1397,17 @@ def bc_oracle(rmat: tuple, sources: list) -> dict:
 
 class BCTwinLevels:
     """Level steps for ``bc_batch(steps=...)``: each level runs through
-    the kernel and, on a twin state, through the plain version, held bit
-    for bit.  Per level it records what the bound needs: the pairs the
-    level must read and write (frontier and joined forward; on the level
-    and a level below backward), the additions its sums make (every edge
-    of a frontier pair forward, of a level pair backward: an upper
-    count), and ``torch.sparse.mm`` of the CSR adjacency with the level's
-    masked operand (the library yardstick of the product alone: the port
-    never calls it)."""
+    the kernel and, on a twin state, through the plain version, the whole
+    state held bit for bit: ``sigma``, ``visited`` and the next level's
+    ``on``, ``base`` and live words forward; ``delta`` and ``coeff``
+    backward (``delta`` of the level below poisoned before both launches:
+    it is written, not read).  Per level it records what the bound needs: the
+    pairs the level must read and write (frontier and joined forward; on
+    the level and a level below backward), the additions its sums make
+    (every edge of a frontier pair forward, of a level pair backward: an
+    upper count), and ``torch.sparse.mm`` of the CSR adjacency with the
+    level's masked operand (the library yardstick of the product alone:
+    the port never calls it)."""
 
     def __init__(self, g):
         import torch
@@ -1408,63 +1423,77 @@ class BCTwinLevels:
         self.in_deg = (g.in_indptr[1:] - g.in_indptr[:-1]).double()
         self.fwd, self.bwd = [], []
 
-    def forward(self, indptr, indices, dist, sigma, live, level, *,
-                backend=None):
+    @staticmethod
+    def _hold(what: str, level: int, names: tuple, got: tuple,
+              want: tuple) -> None:
         import torch
-        from repro_torch.kernels.bc.ops import bc_forward_level
+        torch.cuda.synchronize()
+        diff = {k: int((a != b).sum()) for k, a, b in zip(names, got, want)}
+        if any(diff.values()):
+            raise AssertionError(
+                f"{what} {level} ({got[0].shape[0]} vertices): kernel "
+                f"differs from the plain version on " + ", ".join(
+                    f"{v} {k}" for k, v in diff.items() if v))
+
+    def forward(self, indptr, indices, sigma, visited, on, base, live, level,
+                *, backend=None):
+        import torch
+        from repro_torch.kernels.bc.ops import (bc_forward_level,
+                                                level_values, unpack_bits)
         if level == 0:
-            self.twin, self.tdelta = (dist.clone(), sigma.clone()), None
-        tdist, tsigma = self.twin
-        on = dist == level
-        x = torch.where(on, sigma, 0.0)
-        rec = {"level": level, "frontier": int(on.sum()),
-               "ops": float(on.sum(dim=1).double() @ self.out_deg),
+            self.twin = [t.clone() for t in (sigma, visited)]
+            self.on, self.base, self.back = [on.clone()], [base.clone()], None
+        front = unpack_bits(on, sigma.shape[1])
+        x = level_values(sigma, front, base)
+        rec = {"level": level, "frontier": int(front.sum()),
+               "ops": float(front.sum(dim=1).double() @ self.out_deg),
                "library_ms": cuda_time_ms(lambda: torch.sparse.mm(self.a_in,
                                                                    x))}
-        f = bc_forward_level(indptr, indices, dist, sigma, live, level,
-                             backend="cuda")
-        t = bc_forward_level(indptr, indices, tdist, tsigma, live, level,
-                             backend="ref")
-        torch.cuda.synchronize()
-        if not (torch.equal(f, t) and torch.equal(dist, tdist) and
-                torch.equal(sigma, tsigma)):
-            raise AssertionError(
-                f"bc_forward_level {level} ({dist.shape[0]} vertices, "
-                f"{dist.shape[1]} sources): kernel differs from the plain "
-                f"version on {int((dist != tdist).sum())} dist and "
-                f"{int((sigma != tsigma).sum())} sigma entries")
-        rec.update(joined=int((dist == level + 1).sum()),
-                   live_sources=int(f.sum()))
+        del front, x
+        got = bc_forward_level(indptr, indices, sigma, visited, on, base,
+                               live, level, backend="cuda")
+        want = bc_forward_level(indptr, indices, *self.twin, self.on[level],
+                                self.base[level], live, level, backend="ref")
+        self._hold("bc_forward_level", level,
+                   ("on", "base", "live", "sigma", "visited"),
+                   (*got, sigma, visited), (*want, *self.twin))
+        self.on.append(want[0])
+        self.base.append(want[1])
+        rec.update(joined=int(unpack_bits(got[0], sigma.shape[1]).sum()),
+                   live_sources=int(unpack_bits(got[2], sigma.shape[1])
+                                    .sum()))
         self.fwd.append(rec)
-        return f
+        return got
 
-    def backward(self, indptr, indices, dist, sigma, delta, level, *,
-                 backend=None):
+    def backward(self, indptr, indices, sigma, delta, coeff, on, on_below,
+                 base, base_below, level, *, backend=None):
         import torch
-        from repro_torch.kernels.bc.ops import bc_backward_level
-        if self.tdelta is None:
-            self.tdelta = delta.clone()
-        on = dist == level
-        coeff = torch.where(on, (1.0 + delta) /
-                            torch.where(sigma > 0, sigma, 1.0), 0.0)
-        n_on = on.sum(dim=1).double()
+        from repro_torch.kernels.bc.ops import (bc_backward_level,
+                                                level_values, unpack_bits)
+        if self.back is None:
+            self.back = [delta.clone(), coeff.clone()]
+        here = unpack_bits(on, sigma.shape[1])
+        sig = level_values(sigma, here, base)
+        c = torch.where(here, (1.0 + delta) /
+                        torch.where(sig > 0, sig, 1.0), 0.0)
+        n_on = here.sum(dim=1).double()
         rec = {"level": level, "on_level": int(n_on.sum()),
-               "updated": int((dist == level - 1).sum()),
+               "updated": int(unpack_bits(on_below, sigma.shape[1]).sum()),
                "ops": float(n_on @ self.in_deg + 2 * n_on.sum()),
                "library_ms": cuda_time_ms(lambda: torch.sparse.mm(self.a_out,
-                                                                   coeff))}
-        bc_backward_level(indptr, indices, dist, sigma, delta, level,
-                          backend="cuda")
-        bc_backward_level(indptr, indices, dist, sigma, self.tdelta, level,
-                          backend="ref")
-        torch.cuda.synchronize()
-        if not torch.equal(delta, self.tdelta):
-            raise AssertionError(
-                f"bc_backward_level {level} ({dist.shape[0]} vertices, "
-                f"{dist.shape[1]} sources): kernel differs from the plain "
-                f"version on {int((delta != self.tdelta).sum())} delta "
-                f"entries (max |d| "
-                f"{float((delta - self.tdelta).abs().max())})")
+                                                                   c))}
+        del here, sig, c
+        below = unpack_bits(on_below, sigma.shape[1])
+        delta[below] = 7.0
+        self.back[0][below] = 7.0
+        del below
+        bc_backward_level(indptr, indices, sigma, delta, coeff, on, on_below,
+                          base, base_below, level, backend="cuda")
+        bc_backward_level(indptr, indices, sigma, *self.back, self.on[level],
+                          self.on[level - 1], self.base[level],
+                          self.base[level - 1], level, backend="ref")
+        self._hold("bc_backward_level", level, ("delta", "coeff"),
+                   (delta, coeff), tuple(self.back))
         self.bwd.append(rec)
         return delta
 
@@ -1519,23 +1548,38 @@ def bc_sweep_times(g, src, backend: str, reps: int) -> tuple:
             [statistics.median(c) for c in zip(*bwd)])
 
 
-def bc_level_bounds(n: int, s: int, csr_bytes: int,
+def bc_level_bounds(n: int, s_pad: int, csr_bytes: int,
                     twin: BCTwinLevels) -> None:
     """Adds each level's bound to ``twin``'s records: its bytes at the
-    memory rate against its operations at the float32 rate.  The bytes a
-    level must move, 4 a value: forward, dist of every (vertex, source)
-    pair, sigma of each frontier pair, dist and sigma written for each
-    pair that joins; backward, dist of every pair, sigma and delta of
-    each pair on the level, sigma and delta read and delta written for
-    each pair a level below; and the CSR."""
+    memory rate against its operations at the float32 rate.  What any
+    implementation must read to know which pairs are on duty is one bit a
+    pair: forward, the bits of visited, of the level's frontier and of
+    the next one (3 N S' / 8 bytes), sigma of each frontier pair, sigma
+    written for each pair that joins; backward, the bits of the level and
+    the level below (2 N S' / 8), coeff of each pair on the level, sigma
+    read and delta and coeff written for each pair a level below (its
+    delta is 0 before, so no implementation need read it); 4 bytes a
+    value, and the CSR.  ``bound_dist_ms``
+    beside it is the bound of the design before the masks, which read
+    dist (4 bytes a pair) to find the pairs on duty (forward: dist of
+    every pair, sigma of the frontier, dist and sigma of the joined;
+    backward: dist of every pair, sigma and delta of the level, sigma
+    and delta read and delta written a level below)."""
+    bits = n * s_pad / 8
     for rec in twin.fwd:
         rec["bound_ms"], rec["bound_by"] = bound_ms(
-            4 * (n * s + rec["frontier"] + 2 * rec["joined"]) + csr_bytes,
+            3 * bits + 4 * (rec["frontier"] + rec["joined"]) + csr_bytes,
             rec["ops"])
+        rec["bound_dist_ms"] = bound_ms(
+            4 * (n * s_pad + rec["frontier"] + 2 * rec["joined"]) +
+            csr_bytes, rec["ops"])[0]
     for rec in twin.bwd:
         rec["bound_ms"], rec["bound_by"] = bound_ms(
-            4 * (n * s + 2 * rec["on_level"] + 3 * rec["updated"]) +
+            2 * bits + 4 * (rec["on_level"] + 3 * rec["updated"]) +
             csr_bytes, rec["ops"])
+        rec["bound_dist_ms"] = bound_ms(
+            4 * (n * s_pad + 2 * rec["on_level"] + 3 * rec["updated"]) +
+            csr_bytes, rec["ops"])[0]
 
 
 def bc_fixed_case(g, src, label: str) -> dict:
@@ -1543,9 +1587,11 @@ def bc_fixed_case(g, src, label: str) -> dict:
     the plain versions at every level; per level and per sweep (a
     task's), kernel and plain times, bound and library time."""
     from repro_torch.algorithms import bc_batch
+    from repro_torch.kernels.dispatch import bucket
     twin = BCTwinLevels(g)
     bc_batch(g, src, steps=(twin.forward, twin.backward))
-    bc_level_bounds(g.n, src.shape[0], (g.n + 1 + g.n_edges) * 4, twin)
+    bc_level_bounds(g.n, bucket(src.shape[0], 32),
+                    (g.n + 1 + g.n_edges) * 4, twin)
     kf, kb = bc_sweep_times(g, src, "cuda", reps=10)
     pf, pb = bc_sweep_times(g, src, "ref", reps=3)
     for recs, k, p in ((twin.fwd, kf, pf), (twin.bwd, kb, pb)):
@@ -1557,18 +1603,26 @@ def bc_fixed_case(g, src, label: str) -> dict:
     for name, recs in (("bc_forward_level", twin.fwd),
                        ("bc_backward_level", twin.bwd)):
         tot = {k: sum(r[k] for r in recs)
-               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+               for k in ("ms", "plain_ms", "bound_ms", "bound_dist_ms",
+                         "library_ms")}
         tot["bound_by"] = "bytes" if all(r["bound_by"] == "bytes"
                                          for r in recs) else "operations"
         tot["levels"] = len(recs)
         tot["ms_per_level"] = tot["ms"] / len(recs)
+        tot["levels_under_library"] = sum(r["ms"] < r["library_ms"]
+                                          for r in recs)
         out[name] = tot
         log(f"[bc] {label}, {name}: {len(recs)} levels bit-equal to the "
             f"plain version; a sweep (a task's) kernel {tot['ms']:.4f} ms "
             f"({tot['ms_per_level']:.4f} ms a level), plain "
             f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
-            f"({tot['bound_by']}), sparse.mm {tot['library_ms']:.4f} ms; "
-            f"per level kernel ms " + " ".join(f"{r['ms']:.4f}" for r in recs)
+            f"({tot['bound_by']}; {tot['bound_dist_ms']:.4f} ms reading "
+            f"dist), sparse.mm {tot['library_ms']:.4f} ms, kernel under "
+            f"sparse.mm at {tot['levels_under_library']} of {len(recs)} "
+            f"levels; per level kernel ms "
+            + " ".join(f"{r['ms']:.4f}" for r in recs)
+            + "; per level sparse.mm ms "
+            + " ".join(f"{r['library_ms']:.4f}" for r in recs)
             + "; per level bound ms "
             + " ".join(f"{r['bound_ms']:.4f}" for r in recs))
     out["task_ms"] = out["bc_forward_level"]["ms"] + \
@@ -1619,7 +1673,8 @@ def phase_bc(dev) -> dict:
     import torch
     from repro_torch.algorithms import (RMATParams, bc_batch, bc_spec,
                                         rmat_graph)
-    from repro_torch.configs.paper_workloads import BC_PAPER, BC_PAPER_TASKS
+    from repro_torch.configs.paper_workloads import (BC_PAPER, BC_PAPER_TASKS,
+                                                     BC_SCALED)
     from repro_torch.core import make_pool, run_irregular
     from repro_torch.kernels import launches
 
@@ -1692,13 +1747,17 @@ def phase_bc(dev) -> dict:
     # -- the kernels at fixed shapes, with no other process on the host ------
     fixed = []
     for scale, s in BC_FIXED:
+        scaled = scale == BC_SCALED.scale
         g = g17 if scale == p.scale else rmat_graph(
-            RMATParams(scale=scale, seed=p.seed)).to(dev)
-        src = torch.arange(s, device=dev) if s == 1024 else \
+            BC_SCALED if scaled else RMATParams(scale=scale, seed=p.seed)
+        ).to(dev)
+        # a task's block: its first, at the paper's and BC_SCALED's shapes
+        src = torch.arange(s, device=dev) if s == 1024 or scaled else \
             torch.from_numpy(np.random.default_rng(scale).choice(
                 g.n, s, replace=False)).to(dev)
         label = (f"scale {scale}, {s} sources"
-                 + (" (main-path block 0)" if s == 1024 else ""))
+                 + (" (main-path block 0)" if s == 1024 else
+                    " (BC_SCALED block 0)" if scaled else ""))
         fixed.append(bc_fixed_case(g, src, label))
         torch.cuda.empty_cache()
 

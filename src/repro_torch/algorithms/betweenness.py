@@ -29,15 +29,16 @@ import torch
 
 from ..core import TaskShape, WorkSpec
 from ..device import DeviceLike, resolve_device, task_stream
-from ..kernels.bc.ops import (INF, bc_backward_level, bc_forward_level,
-                              sum_over_sources)
+from ..kernels.bc.ops import (bc_backward_level, bc_forward_level,
+                              sum_over_sources, sweep_state)
 from ..kernels.dispatch import bucket
 
 __all__ = ["RMATParams", "CSRGraph", "rmat_graph", "bc_batch",
            "bc_single_node", "bc_spec", "BCResult", "MAX_SOURCES"]
 
-#: sources swept together at most: a sweep holds three [N, S] 32-bit
-#: arrays, 1.5 GiB at the paper's N = 131,072 and S = 1,024
+#: sources swept together at most (the kernels' most, 32 words of masks a
+#: vertex): a sweep holds three [N, S] 32-bit arrays at once, 1.5 GiB at
+#: the paper's N = 131,072 and S = 1,024, and a bit a pair a level
 MAX_SOURCES = 1024
 
 
@@ -173,15 +174,21 @@ def bc_batch(graph: CSRGraph, sources: torch.Tensor,
              dependency scores delta, each source's own entry excluded.
 
     The reference's function, level for level, with its state kept
-    vertex-major, [N, S], where the reference keeps [S, N], so that a
-    warp reads one neighbour's strip of sources in one coalesced load;
-    int32 ``dist`` (``INF`` unreached), float32 ``sigma`` and ``delta``.
-    The source axis is padded to ``bucket(S, 32)`` with columns that
-    never join and add exact zeros.  The forward sweep reads one answer a
-    level from the device (did any pair join: the per-source flags that
-    tell the next level which sources still have a frontier), a sync with
-    the device on the current stream.  The sum over sources is pairwise
-    halving over the padded axis, one fixed order on every device.
+    vertex-major, [N, S], where the reference keeps [S, N]
+    (``kernels/bc/ref.py``): bit-packed masks of 32 sources a word,
+    ``on[L]`` for the pairs on each level (kept for the backward sweep)
+    and ``visited``, so that a warp reads which of a neighbour's pairs
+    are on the level, for the whole batch, in one coalesced 128-byte
+    load; float32 ``sigma`` and ``coeff = (1 + delta) / sigma`` kept in
+    level order, so that a level's values of a vertex lie together and a
+    level writes whole runs of them; and ``delta`` in source order.  No
+    BFS distance array is kept: the masks are the distances.  The source
+    axis is padded to ``bucket(S, 32)`` with columns that never join and
+    add exact zeros.  The forward sweep reads one answer a level from the
+    device (did any pair join: the ``live`` words that tell the next level
+    which sources still have a frontier), a sync with the device on the
+    current stream.  The sum over sources is pairwise halving over the
+    padded axis, one fixed order on every device.
     Sources are swept in chunks of at most ``MAX_SOURCES``, whose partials
     are added in chunk order, so a fused task's result depends on how its
     blocks were grouped.
@@ -205,44 +212,43 @@ def bc_batch(graph: CSRGraph, sources: torch.Tensor,
     return out
 
 
-def _sweep_state(n: int,
-                 sources: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """A sweep's initial ``dist``, ``sigma`` ([N, S'] on the sources'
-    device) and ``live`` ([S']) for ``sources``, S' = ``bucket(S, 32)``;
-    a padded column is no source (``dist = INF``, ``sigma = 0``, not
-    live) and never joins."""
-    dev = sources.device
-    cols = torch.arange(sources.shape[0], device=dev)
-    s_pad = bucket(sources.shape[0], 32)
-    dist = torch.full((n, s_pad), INF, dtype=torch.int32, device=dev)
-    dist[sources, cols] = 0
-    sigma = torch.zeros((n, s_pad), dtype=torch.float32, device=dev)
-    sigma[sources, cols] = 1.0
-    live = (torch.arange(s_pad, device=dev) < sources.shape[0]).int()
-    return dist, sigma, live
-
-
 def _sweep(g: CSRGraph, sources: torch.Tensor, levels: int,
            backend: Optional[str], forward: Callable,
            backward: Callable) -> torch.Tensor:
     """One forward and one backward sweep over at most ``MAX_SOURCES``."""
-    dist, sigma, live = _sweep_state(g.n, sources)
+    st = sweep_state(g.n, sources, bucket(sources.shape[0], 32))
+    sigma, coeff, visited, live = (
+        st[k] for k in ("sigma", "coeff", "visited", "live"))
+    # on[L], base[L]: the pairs on level L, bit-packed, and where their
+    # values start in each row part
+    on, base = [st["on"]], [st["base"]]
+    del st
 
     # -- forward: level-synchronous BFS with path counting ----------------
-    level = 0
-    while level < levels:
-        live = forward(g.in_indptr, g.in_indices, dist, sigma, live, level,
-                       backend=backend)
+    level, ran_out = 0, False
+    while level < levels and not ran_out:
+        nxt, at, live = forward(g.in_indptr, g.in_indices, sigma, visited,
+                                on[level], base[level], live, level,
+                                backend=backend)
+        on.append(nxt)
+        base.append(at)
         level += 1
-        if not bool(live.any()):
-            break
+        ran_out = not bool(live.any())
+    del visited
+    if not ran_out:
+        # ``levels`` cut the BFS: an empty level past the cut, so that the
+        # backward sweep starts, as it does where the BFS ran out, at an
+        # empty level, whose launch writes the top pairs' coeff
+        on.append(torch.zeros_like(on[-1]))
+        base.append(base[-1])
+        level += 1
 
     # -- backward: dependency accumulation --------------------------------
     delta = torch.zeros_like(sigma)
     for lvl in range(level, 0, -1):
-        backward(g.out_indptr, g.out_indices, dist, sigma, delta, lvl,
-                 backend=backend)
-    del dist, sigma
+        backward(g.out_indptr, g.out_indices, sigma, delta, coeff, on[lvl],
+                 on[lvl - 1], base[lvl], base[lvl - 1], lvl, backend=backend)
+    del sigma, coeff, on, base
     # exclude the source itself from its own dependency sum
     cols = torch.arange(sources.shape[0], device=sources.device)
     delta[sources, cols] = 0.0

@@ -86,7 +86,29 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    wall time); the elastic maps must be bit-equal and the fused one
    agree within the reference's tolerances; 3 sampled tasks of the first
    run replayed through the plain versions bit for bit;
-8. the model path, gemma3-1b at full width with random weights from a
+8. faults, master kills and resumes, and the hybrid, sim and speculative
+   pools (run after BC; ``phase_chaos``): the reference's
+   ``chaos_mortality`` row at its own shapes on the sim pool (UTS, MS, BC
+   at 0, 10 and 30 % container mortality; the master killed after 5
+   folds and resumed for UTS plain, 3 shards and batched, MS and BC; the
+   routing policies), ``cost_performance_sim`` (UTS depth 10) and
+   ``fig4_dynamic_optimization_sim`` (UTS depth 11 through
+   ``simulate_uts_pool``), every task body on the card, each derived
+   value equal to the JAX package's (virtual time and dollars are the
+   provider model's, a function of the task results alone); then on the
+   elastic pool: Table 1's depth 14 at 30 % mortality; depth 14 killed
+   after 4,000 folds with the WAL spilled to a file (a checkpoint every
+   1,000 folds) and resumed from that file, both counting 117,669,204
+   nodes, with the journal's size and the master's time to encode and
+   write it; Mariani-Silver 256² (sd-64, max dwell 5,000,000) killed at
+   half its folds and resumed, equal to Mariani-Silver over
+   ``naive_render``; BC_SCALED's 32 tasks killed at half and resumed from
+   a spilled journal, bit-equal to an unkilled run; the card's UTS and MS
+   journals resumed with ``device="cpu"`` specs and a journal of the CPU
+   resumed on the card, bit-equal; UTS depth 12 on a ``hybrid`` pool
+   (cost-per-deadline routing) and on a ``speculative`` elastic pool
+   whose clones must all finish, both equal to ``uts_sequential``;
+9. the model path, gemma3-1b at full width with random weights from a
    seed: ``prefill`` of prefill_32k's S = 32,768 (batch cut from 32 to 1),
    whose 26 attention layers must each launch the flash kernel, then one
    global and one local layer's own operands again through kernel and
@@ -97,12 +119,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    steps under ``torch.profiler`` (device busy time, largest kernels, the
    device's idle share); then ``serve`` (16 requests, 4 slots, max_seq
    256) through the ElasticBatcher, which must answer all;
-9. one JSON line with every kernel's launches on each main path, error,
+10. one JSON line with every kernel's launches on each main path, error,
    times and bound, then the last line ``{"ok": true, "device": ...}``.
 
 Each of the eleven main-path runs (three UTS, two Mariani-Silver, three BC,
-prefill, decode, serve) is driven with the launch counts set to 0 just before it
-and read just after it, and fails unless its kernel launched.  Decode and
+prefill, decode, serve), and each run of phase 8 on the card, is driven with
+the launch counts set to 0 just before it and read just after it, and fails
+unless its kernel launched (BC: both level kernels).  Decode and
 serve run no hand kernel (the decode product is plain PyTorch, as the
 reference leaves it to XLA, and the batcher's prefill only counts
 tokens); their flash launches are read and reported, 0.  The depth 4..10
@@ -670,10 +693,16 @@ def phase_kernel_mandelbrot(dev) -> dict:
                      f"max_iter {max_iter}"}
 
 
-def elastic_pool():
+#: the elastic pool of every main path: 16 workers, 1 ms an invocation
+ELASTIC_CFG = dict(max_concurrency=16, invoke_overhead=1e-3,
+                   invoke_rate_limit=None)
+
+
+def elastic_pool(**kw):
+    """The main paths' elastic pool; ``kw`` adds ``faults=`` or
+    ``trace=``."""
     from repro_torch.core import make_pool
-    return make_pool("elastic", max_concurrency=16, invoke_overhead=1e-3,
-                     invoke_rate_limit=None)
+    return make_pool("elastic", **ELASTIC_CFG, **kw)
 
 
 class OperandTap:
@@ -1867,6 +1896,755 @@ def phase_bc(dev) -> dict:
             "launches": {k: r["launches"] for k, r in runs.items()}}
 
 
+# -- faults, kill-and-resume, and the hybrid, sim and speculative pools ----------
+
+#: the ``chaos_mortality`` row (``benchmarks/run.py:806``) as the JAX package
+#: gives it on the CPU (``benchmarks/BENCH_pr10.json``; a CPU run of the row
+#: gives the same); every ``*_identical_*`` flag must also hold
+CHAOS_ROW = {"uts_deaths_30": 30, "ms_deaths_30": 1193, "bc_deaths_30": 12,
+             "makespan_tax_30_pct": 83.3, "cost_tax_30_pct": 52.6,
+             "recovery_overhead_pct": 26.2, "recovered_tasks": 16,
+             "route_cost_per_deadline_metric": 8.73,
+             "route_threshold_metric": 11.904,
+             "route_local_first_metric": 7.004}
+#: ``cost_performance_sim`` (``run.py:352``), from the same BENCH file
+COST_PERF_ROW = {"nodes": 461_459, "serverless_vt_s": 6.482,
+                 "vm_vt_s": 20.93, "serverless_cold_starts": 1046,
+                 "serverless_peak": 1046, "autoscale_resizes": 65,
+                 "serverless_usd": 0.067366, "vm_usd": 0.023721,
+                 "equal_cost_speedup": 1.14}
+#: ``fig4_dynamic_optimization_sim`` (``run.py:209``): no BENCH file holds
+#: it; these are the JAX package's row on the CPU, with the virtual times
+#: as the floats its ``simulate_uts_pool`` returns (the row prints them
+#: rounded, 0.202 and 0.145 s)
+FIG4_SIM_ROW = {"nodes": 1_841_891, "improvement_pct": 28.5}
+FIG4_SIM_VTIMES = {"static": 0.20246, "dynamic": 0.14481}
+FIG4_PAPER_PCT = 41.56
+#: the depth-14 kill: the master dies at fold 4,001 of 8,249; the journal
+#: holds a checkpoint every 1,000 folds
+CHAOS_KILL_FOLDS = 4000
+CHAOS_CHECKPOINT_EVERY = 1000
+#: Mariani-Silver kill-and-resume: the sd-64 geometry on 256x256 pixels
+CHAOS_MS_SIDE = 256
+#: the hybrid and speculative pools: UTS at depth 12
+CHAOS_POOL_DEPTH = 12
+#: the speculative pool's watchdog: clone a task once it has waited twice
+#: the median task's time, and at least 5 ms (the default floor, 0.5 s, is
+#: longer than any task here, so no clone would run)
+CHAOS_SPECULATION = dict(factor=2.0, floor_s=0.005, poll_s=0.01)
+#: the hybrid's routing: cost per deadline, with a task's body reckoned at
+#: alpha seconds a node of its bag (UTS's cost hint is the bag's size)
+CHAOS_DEADLINE_S = 0.05
+CHAOS_ALPHA_S = 1e-5
+#: WAL spill files: under ``build/`` (ignored by git), not beside the
+#: report in ``chiprun_out/``: a depth-14 journal takes gigabytes; each is
+#: deleted once read
+JOURNAL_DIR = ROOT / "build" / "chaos"
+
+
+class CountedBodies:
+    """Counts a spec's task bodies (``execute`` and ``execute_batch``
+    calls), so that a path's kernel launches can be read beside the bodies
+    that ran them."""
+
+    def __init__(self) -> None:
+        import threading
+        self.n = 0
+        self.lock = threading.Lock()
+
+    def wrap(self, spec):
+        import dataclasses
+
+        def counted(fn):
+            def body(*a, **kw):
+                with self.lock:
+                    self.n += 1
+                return fn(*a, **kw)
+            return body
+        return dataclasses.replace(
+            spec, execute=counted(spec.execute),
+            execute_batch=spec.execute_batch and counted(spec.execute_batch))
+
+
+class TimedWAL:
+    """Wraps a spec's WAL encoders and a store's ``emit`` with clocks: the
+    master thread's time to encode the journal (device-to-host copies
+    included) and to serialize and write it."""
+
+    def __init__(self) -> None:
+        self.encode_s = 0.0
+        self.emit_s = 0.0
+
+    def wrap(self, spec):
+        import dataclasses
+
+        def timed(fn):
+            def enc(x):
+                t0 = time.perf_counter()
+                try:
+                    return fn(x)
+                finally:
+                    self.encode_s += time.perf_counter() - t0
+            return enc
+        return dataclasses.replace(
+            spec, encode_item=timed(spec.encode_item),
+            encode_result=timed(spec.encode_result),
+            encode_state=timed(spec.encode_state))
+
+    def store(self, path: Path):
+        from repro_torch.core.telemetry import CHECKPOINT, FOLDED
+        from repro_torch.trace import TraceStore
+        wal = self
+
+        class Store(TraceStore):
+            def emit(self, kind, **kw):
+                if kind not in (FOLDED, CHECKPOINT):
+                    return super().emit(kind, **kw)
+                t0 = time.perf_counter()
+                try:
+                    return super().emit(kind, **kw)
+                finally:
+                    wal.emit_s += time.perf_counter() - t0
+        return Store(path=str(path))
+
+
+def journal_tail(path: Path) -> dict:
+    """A spilled journal's folds and checkpoints, and the folds past its
+    last checkpoint (what recovery replays), read from each line's head
+    (``event_to_dict`` writes ``t`` and ``kind`` first)."""
+    folds = ckpts = tail = 0
+    with open(path, "rb") as f:
+        for line in f:
+            head = line[:96]
+            if b'"kind":"checkpoint"' in head:
+                ckpts += 1
+                tail = 0
+            elif b'"kind":"folded"' in head:
+                n = line.count(b'"item":')
+                folds += n
+                tail += n
+    return {"folds": folds, "checkpoints": ckpts, "tail_folds": tail}
+
+
+def chaos_path(paths: dict, name: str, kernel: str, fn) -> tuple:
+    """``run_path`` of one path of the chaos phase; records the launches of
+    every kernel it may run under ``name`` (BC's two level kernels, UTS's
+    ``uts_expand`` and its root digest)."""
+    from repro_torch.kernels import launches
+    out, wall, _ = run_path(name, kernel, fn)
+    kernels = {"uts_expand": ("uts_expand", "uts_hash"),
+               "mandelbrot": ("mandelbrot",),
+               "bc_forward_level": ("bc_forward_level", "bc_backward_level")}
+    paths[name] = {"seconds": wall,
+                   "launches": {k: launches(k) for k in kernels[kernel]}}
+    if kernel == "bc_forward_level" and \
+            paths[name]["launches"]["bc_backward_level"] <= 0:
+        raise AssertionError(f"{name}: bc_backward_level not launched")
+    return out, wall
+
+
+def killed_run(pool_fn, spec, n_folds: int, **kw):
+    """Runs ``spec`` with its master killed after ``n_folds`` folds (WAL
+    on); the pool's exit drains what the dead master left in flight.
+    Returns the pool (its journal and counts)."""
+    from repro_torch.chaos import MasterKilledError, kill_master_after
+    from repro_torch.core import run_irregular
+    kw.setdefault("wal", True)
+    try:
+        with pool_fn() as pool:
+            run_irregular(pool, kill_master_after(spec, n_folds), **kw)
+    except MasterKilledError:
+        return pool
+    raise AssertionError(f"{spec.name}: the injected master kill after "
+                         f"{n_folds} folds never fired")
+
+
+def route_sim(policy, provider, tasks, deadline_s: float) -> tuple:
+    """The ``chaos_mortality`` row's routing model: a bursty stream of
+    mixed-size tasks placed by ``policy`` between a 4-slot donor VM and
+    the provider's containers (cold or warm), in a deterministic queueing
+    model; returns (billed elastic seconds, deadline-hit fraction, billed
+    seconds per unit hit fraction)."""
+
+    class Clock:
+        t = 0.0
+
+        def now(self):
+            return self.t
+
+    clk = Clock()
+
+    class Local:
+        max_concurrency = 4
+
+        def __init__(self):
+            self.ends = [0.0] * self.max_concurrency
+
+        def idle_capacity(self):
+            return sum(1 for e in self.ends if e <= clk.t)
+
+        def pending(self):
+            return 0
+
+    class Fleet:
+        def __init__(self):
+            self.ends = []
+
+        def warm_count(self, now):
+            return sum(1 for e in self.ends
+                       if e <= now <= e + provider.keep_alive_s)
+
+    class Elastic:
+        max_concurrency = 10_000
+
+        def __init__(self):
+            self.provider = provider
+            self._fleet = Fleet()
+            self.clock = clk
+            self.invoke_overhead = provider.warm_overhead_s
+
+        def idle_capacity(self):
+            return self.max_concurrency
+
+        def pending(self):
+            return 0
+
+    class Hybrid:
+        """What routing policies read of a hybrid pool."""
+
+        def __init__(self):
+            self.local = Local()
+            self.elastic = Elastic()
+
+    h = Hybrid()
+    billed = hits = 0.0
+    for t_arr, body in tasks:
+        clk.t = t_arr
+        route = getattr(policy, "route", None)
+        run_local = (route(h, cost_hint=body) if route is not None
+                     else policy(h))
+        if run_local:
+            i = min(range(len(h.local.ends)), key=lambda j: h.local.ends[j])
+            end = max(t_arr, h.local.ends[i]) + body
+            h.local.ends[i] = end
+        else:
+            warm = h.elastic._fleet.warm_count(t_arr) > 0
+            oh = provider.overhead_s(cold=not warm)
+            end = t_arr + oh + body
+            h.elastic._fleet.ends.append(end)
+            billed += oh + body
+        hits += 1.0 if end - t_arr <= deadline_s else 0.0
+    hit_frac = hits / len(tasks)
+    return billed, hit_frac, billed / max(hit_frac, 1e-9)
+
+
+def check_row(label: str, got: dict, want: dict) -> None:
+    bad = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if bad:
+        raise AssertionError(f"{label}: differs from the JAX package's row "
+                             f"(got, want): {bad}")
+
+
+def chaos_mortality_row(dev, paths: dict) -> tuple:
+    """The ``chaos_mortality`` row on the card, at its own shapes: UTS, MS
+    and BC on the sim pool at 0, 10 and 30 % container mortality; the
+    master killed after 5 folds and resumed for UTS (plain, 3 shards,
+    batched), MS and BC; the routing policies.  Returns the derived
+    values, the bases, and the UTS and MS journals (for the resumes
+    across devices)."""
+    import numpy as np
+    from repro_torch.algorithms import (MSParams, RMATParams, UTSParams,
+                                        bc_spec, ms_spec, uts_spec)
+    from repro_torch.chaos import (CostPerDeadlinePolicy, FaultPlan,
+                                   LocalFirstPolicy, ThresholdPolicy)
+    from repro_torch.core import ProviderModel, TaskShape, make_pool, \
+        run_irregular
+
+    uts_p = UTSParams(seed=2, b0=3.0, max_depth=6)
+    ms_p = MSParams(width=128, height=128, max_dwell=64, max_depth=4,
+                    initial_subdivision=4)
+    bc_p = RMATParams(scale=7, edge_factor=8, seed=2)
+    uts_kw = dict(shape=TaskShape(split_factor=4, iters=50))
+    same_image = (lambda a, b: a["image"].shape == b["image"].shape
+                  and bool(np.array_equal(a["image"], b["image"])))
+    cases = {
+        "uts": (lambda d: uts_spec(uts_p, device=d), uts_kw,
+                lambda a, b: a == b, "uts_expand"),
+        "ms": (lambda d: ms_spec(ms_p, device=d), {}, same_image,
+               "mandelbrot"),
+        "bc": (lambda d: bc_spec(bc_p, n_tasks=24, device=d), {},
+               lambda a, b: bool(np.array_equal(a, b)), "bc_forward_level"),
+    }
+
+    def sim(**kw):
+        return make_pool("sim", max_concurrency=16, **kw)
+
+    derived, bases = {}, {}
+    for name, (mk, kw, eq, kernel) in cases.items():
+        for pct in (0, 10, 30):
+            bodies = CountedBodies()
+
+            def go():
+                plan = FaultPlan(seed=7, container_mortality=pct / 100) \
+                    if pct else None
+                with sim(faults=plan) as pool:
+                    return run_irregular(pool, bodies.wrap(mk(dev)), **kw)
+            label = f"sim {name} mortality {pct}%"
+            r, _ = chaos_path(paths, label, kernel, go)
+            paths[label].update(tasks=r.tasks, bodies=bodies.n,
+                                worker_deaths=r.worker_deaths)
+            if bodies.n != r.tasks:
+                raise AssertionError(f"{label}: {bodies.n} task bodies ran "
+                                     f"for {r.tasks} tasks")
+            if not pct:
+                bases[name] = r
+                continue
+            derived[f"{name}_identical_{pct}"] = eq(r.output,
+                                                    bases[name].output)
+            if pct == 30:
+                derived[f"{name}_deaths_30"] = r.worker_deaths
+                if name == "uts":
+                    base = bases["uts"]
+                    derived["makespan_tax_30_pct"] = round(
+                        (r.makespan_s / base.makespan_s - 1.0) * 100, 1)
+                    derived["cost_tax_30_pct"] = round(
+                        (r.cost.total / base.cost.total - 1.0) * 100, 1)
+
+    journals = {}
+    for label, name, kw in (("uts", "uts", uts_kw),
+                            ("uts_shards", "uts", dict(uts_kw, shards=3)),
+                            ("uts_batched", "uts",
+                             dict(uts_kw, batching=True)),
+                            ("ms", "ms", {}), ("bc", "bc", {})):
+        mk, _, eq, kernel = cases[name]
+        killed, _ = chaos_path(paths, f"sim {label} killed after 5 folds",
+                               kernel, lambda: killed_run(
+                                   sim, mk(dev), 5, **kw))
+
+        def resume():
+            with sim() as pool:
+                return run_irregular(pool, mk(dev), resume_from=killed.events,
+                                     **kw)
+        r, _ = chaos_path(paths, f"sim {label} resumed", kernel, resume)
+        derived[f"resume_identical_{label}"] = eq(r.output,
+                                                  bases[name].output)
+        if label == "uts":
+            killed_tasks = killed.snapshot()["submitted"]
+            derived["recovery_overhead_pct"] = round(
+                ((killed_tasks + r.tasks) / bases["uts"].tasks - 1.0) * 100,
+                1)
+            derived["recovered_tasks"] = r.recovered_tasks
+        if label in ("uts", "ms"):
+            journals[label] = killed.events
+
+    provider = ProviderModel.aws_lambda()
+    deadline_s = 0.6
+    stream = [(burst * 1.0, 0.4 if i % 2 else 0.05)
+              for burst in range(6) for i in range(8)]
+    for name, pol in (("threshold", ThresholdPolicy(cost_threshold=0.2)),
+                      ("local_first", LocalFirstPolicy()),
+                      ("cost_per_deadline", CostPerDeadlinePolicy(
+                          deadline_s=deadline_s, alpha_s_per_cost=1.0))):
+        billed, hit_frac, metric = route_sim(pol, provider, stream,
+                                             deadline_s)
+        derived[f"route_{name}_billed_s"] = round(billed, 3)
+        derived[f"route_{name}_hit_frac"] = round(hit_frac, 3)
+        derived[f"route_{name}_metric"] = round(metric, 3)
+
+    flags = {k: v for k, v in derived.items() if "_identical_" in k}
+    if len(flags) != 11 or not all(flags.values()):
+        raise AssertionError(f"chaos_mortality: outputs not identical: "
+                             f"{flags}")
+    check_row("chaos_mortality", derived, CHAOS_ROW)
+    return derived, bases, journals, (uts_p, ms_p, uts_kw, same_image)
+
+
+def cost_performance_row(dev, paths: dict) -> dict:
+    """``cost_performance_sim`` on the card: UTS depth 10 (chunk 4096,
+    shape (100, 400)) on a 2,000-wide sim pool with AWS Lambda's provider
+    model and autoscaling, and on a 96-wide static VM."""
+    from repro_torch.algorithms import UTSParams, uts_spec
+    from repro_torch.core import (AutoscalePolicy, ProviderModel, TaskShape,
+                                  VMPrice, emr_cluster_cost, make_pool,
+                                  price_performance, run_irregular, vm_cost)
+
+    p = UTSParams(seed=19, b0=4.0, max_depth=10, chunk=4096)
+    alpha = 4e-3
+
+    def dur(task, result):
+        return alpha * result[0]
+    shape = TaskShape(100, 400)
+
+    def serverless():
+        with make_pool("sim", max_concurrency=2000,
+                       provider=ProviderModel.aws_lambda(),
+                       duration_fn=dur) as pool:
+            return run_irregular(pool, uts_spec(p, device=dev), shape=shape,
+                                 autoscale=AutoscalePolicy(
+                                     min_capacity=8, max_capacity=2000))
+
+    def vm():
+        with make_pool("sim", max_concurrency=96,
+                       provider=ProviderModel.local_vm(),
+                       duration_fn=dur) as pool:
+            return run_irregular(pool, uts_spec(p, device=dev), shape=shape)
+
+    r_sls, _ = chaos_path(paths, "sim cost_performance serverless",
+                          "uts_expand", serverless)
+    r_vm, _ = chaos_path(paths, "sim cost_performance vm", "uts_expand", vm)
+    for label, r in (("serverless", r_sls), ("vm", r_vm)):
+        paths[f"sim cost_performance {label}"]["tasks"] = r.tasks
+    if r_sls.output != r_vm.output:
+        raise AssertionError(f"cost_performance_sim: {r_sls.output} != "
+                             f"{r_vm.output} nodes")
+    nodes = r_sls.output
+    cost_vm = vm_cost(r_vm.makespan_s, VMPrice.named("c5.24xlarge"))
+    cost_emr = emr_cluster_cost(r_vm.makespan_s, workers=1)
+    ppr_sls = price_performance(nodes / r_sls.makespan_s / 1e6, r_sls.cost)
+    ppr_vm = price_performance(nodes / r_vm.makespan_s / 1e6, cost_vm)
+    ppr_emr = price_performance(nodes / r_vm.makespan_s / 1e6, cost_emr)
+    row = {"nodes": nodes,
+           "serverless_vt_s": round(r_sls.makespan_s, 3),
+           "vm_vt_s": round(r_vm.makespan_s, 3),
+           "serverless_usd": round(r_sls.cost.total, 6),
+           "vm_usd": round(cost_vm.total, 6),
+           "serverless_peak": r_sls.peak_concurrency,
+           "serverless_cold_starts": r_sls.cold_starts,
+           "autoscale_resizes": len(r_sls.autoscale_decisions),
+           "ppr_serverless": round(ppr_sls, 3), "ppr_vm": round(ppr_vm, 3),
+           "ppr_emr": round(ppr_emr, 3),
+           "serverless_beats_vm": ppr_sls > ppr_vm,
+           "equal_cost_speedup": round(ppr_sls / ppr_vm, 2)}
+    check_row("cost_performance_sim", row, COST_PERF_ROW)
+    return row
+
+
+def fig4_sim_row(dev, paths: dict) -> dict:
+    """``fig4_dynamic_optimization_sim`` on the card: UTS depth 11 through
+    the port's ``simulate_uts_pool`` (2,000 workers, 13 ms invocations),
+    the best static shape against the staged controller."""
+    from repro_torch.algorithms import UTSParams, uts_sequential
+    from repro_torch.core import StagedController, TaskShape, \
+        simulate_uts_pool
+    from repro_torch.core.adaptive import Stage
+
+    p = UTSParams(seed=19, b0=4.0, max_depth=11, chunk=4096)
+    kw = dict(workers=2000, overhead_s=13e-3, alpha_s_per_node=10e-6,
+              device=dev)
+
+    def static():
+        return simulate_uts_pool(p, shape=TaskShape(50, 5_000), **kw)
+
+    def dynamic():
+        ctrl = StagedController(initial=TaskShape(200, 2_000), stages=[
+            Stage(800, "above", TaskShape(50, 10_000)),
+            Stage(1300, "above", TaskShape(5, 25_000)),
+            Stage(1100, "below", TaskShape(5, 10_000)),
+            Stage(100, "below", TaskShape(5, 4_000))])
+        return simulate_uts_pool(p, shape=TaskShape(200, 2_000),
+                                 controller=ctrl, **kw)
+
+    st, _ = chaos_path(paths, "simulate_uts_pool static", "uts_expand",
+                       static)
+    dy, _ = chaos_path(paths, "simulate_uts_pool dynamic", "uts_expand",
+                       dynamic)
+    want = uts_sequential(p, device=dev)
+    if not st.count == dy.count == want:
+        raise AssertionError(f"fig4 sim: static {st.count}, dynamic "
+                             f"{dy.count}, uts_sequential {want} nodes")
+    vt = {"static": st.virtual_time_s, "dynamic": dy.virtual_time_s}
+    if vt != FIG4_SIM_VTIMES:
+        raise AssertionError(f"fig4 sim: virtual times {vt}, the JAX "
+                             f"package's {FIG4_SIM_VTIMES}")
+    row = {"nodes": st.count, "vtime_static_s": round(vt["static"], 3),
+           "vtime_dynamic_s": round(vt["dynamic"], 3),
+           "improvement_pct": round(100 * (1 - vt["dynamic"]
+                                           / vt["static"]), 1),
+           "tasks_static": st.tasks, "tasks_dynamic": dy.tasks,
+           "peak_static": st.peak_concurrency,
+           "peak_dynamic": dy.peak_concurrency,
+           "paper_improvement_pct": FIG4_PAPER_PCT}
+    check_row("fig4_dynamic_optimization_sim", row, FIG4_SIM_ROW)
+    return row
+
+
+def phase_chaos(dev, uts: dict) -> dict:
+    """Faults, master kills and resumes, and the hybrid, sim and
+    speculative pools on the card (phase 8 of the module docstring).
+    ``uts`` is phase 4's record, whose unfaulted elastic runs the faulted
+    ones stand beside."""
+    import numpy as np
+    import torch
+    from repro_torch.algorithms import (UTSParams, bc_spec, ms_spec,
+                                        naive_render, uts_sequential,
+                                        uts_spec)
+    from repro_torch.chaos import FaultPlan, make_routing_policy
+    from repro_torch.configs.paper_workloads import BC_SCALED, \
+        BC_SCALED_TASKS
+    from repro_torch.core import make_pool, run_irregular
+
+    t_phase = time.monotonic()
+    paths: dict = {}
+    out: dict = {"paths": paths}
+
+    # 1-3: the paper's simulated rows, every task body on the card
+    row, bases, journals, (uts_p, ms_p, uts_kw, same_image) = \
+        chaos_mortality_row(dev, paths)
+    out["chaos_mortality"] = row
+    log("[chaos] chaos_mortality on the card equals the JAX package's row: "
+        + ", ".join(f"{k} {row[k]}" for k in CHAOS_ROW)
+        + "; every output identical under mortality and after a resume")
+    out["cost_performance_sim"] = row = cost_performance_row(dev, paths)
+    log("[chaos] cost_performance_sim on the card equals the JAX package's "
+        "row: " + ", ".join(f"{k} {row[k]}" for k in COST_PERF_ROW))
+    out["fig4_dynamic_optimization_sim"] = row = fig4_sim_row(dev, paths)
+    log(f"[chaos] fig4_dynamic_optimization_sim on the card: "
+        f"{row['nodes']} nodes (= uts_sequential), virtual time static "
+        f"{FIG4_SIM_VTIMES['static']} s, dynamic "
+        f"{FIG4_SIM_VTIMES['dynamic']} s (the JAX package's), improvement "
+        f"{row['improvement_pct']} % against the paper's {FIG4_PAPER_PCT} %")
+
+    # 4: mortality at the paper's scale on the wall pool
+    params = UTSParams(seed=19, b0=4.0, max_depth=UTS_DEPTH)
+    bodies = CountedBodies()
+
+    def mortal():
+        with elastic_pool(faults=FaultPlan(seed=7,
+                                           container_mortality=0.3)) as pool:
+            return run_irregular(pool, bodies.wrap(uts_spec(params,
+                                                            device=dev)))
+    name = f"elastic UTS depth {UTS_DEPTH} mortality 30%"
+    r, wall = chaos_path(paths, name, "uts_expand", mortal)
+    if r.output != UTS_DEPTH14_NODES:
+        raise AssertionError(f"{name}: {r.output} nodes")
+    if bodies.n != r.tasks:
+        raise AssertionError(f"{name}: {bodies.n} task bodies ran for "
+                             f"{r.tasks} tasks")
+    clean = uts["runs"]["elastic batching=False"]
+    paths[name].update(tasks=r.tasks, bodies=bodies.n,
+                       worker_deaths=r.worker_deaths, retries=r.retries,
+                       unfaulted_seconds=clean["seconds"])
+    log(f"[chaos] {name}: {r.output} nodes, {r.tasks} tasks, "
+        f"{r.worker_deaths} worker deaths, {r.retries} retries, {wall:.3f} s "
+        f"against {clean['seconds']:.3f} s unfaulted (phase 4); "
+        f"{paths[name]['launches']['uts_expand']} uts_expand launches for "
+        f"{bodies.n} task bodies (a killed attempt dies before its body)")
+
+    # 5: kill at fold 4,001 and resume from the spilled journal
+    JOURNAL_DIR.mkdir(parents=True, exist_ok=True)
+    path = JOURNAL_DIR / f"uts{UTS_DEPTH}.jsonl"
+    wal = TimedWAL()
+    store = wal.store(path)
+    try:
+        name = f"elastic UTS depth {UTS_DEPTH} killed after " \
+               f"{CHAOS_KILL_FOLDS} folds"
+        killed, wall_k = chaos_path(
+            paths, name, "uts_expand",
+            lambda: killed_run(lambda: elastic_pool(trace=store),
+                               wal.wrap(uts_spec(params, device=dev)),
+                               CHAOS_KILL_FOLDS,
+                               checkpoint_every=CHAOS_CHECKPOINT_EVERY))
+        store.flush()
+        killed_tasks = killed.snapshot()["submitted"]
+        journal = {"bytes": path.stat().st_size, **journal_tail(path),
+                   "encode_s": wal.encode_s, "emit_s": wal.emit_s}
+        paths[name]["tasks"] = killed_tasks
+
+        def resume():
+            with elastic_pool() as pool:
+                return run_irregular(pool, uts_spec(params, device=dev),
+                                     resume_from=str(path))
+        name = f"elastic UTS depth {UTS_DEPTH} resumed from the journal"
+        r, wall_r = chaos_path(paths, name, "uts_expand", resume)
+    finally:
+        store.close()
+        path.unlink(missing_ok=True)
+    if r.output != UTS_DEPTH14_NODES:
+        raise AssertionError(f"{name}: {r.output} nodes")
+    clean_tasks = clean["tasks"]
+    paths[name].update(tasks=r.tasks, recovered_tasks=r.recovered_tasks)
+    out["uts_kill_resume"] = {
+        "killed_tasks": killed_tasks, "resumed_tasks": r.tasks,
+        "unkilled_tasks": clean_tasks,
+        "recovery_overhead_pct": ((killed_tasks + r.tasks) / clean_tasks
+                                  - 1) * 100,
+        "recovered_tasks": r.recovered_tasks, "journal": journal,
+        "killed_s": wall_k, "resumed_s": wall_r,
+        "unkilled_s": clean["seconds"]}
+    log(f"[chaos] UTS depth {UTS_DEPTH} killed after {CHAOS_KILL_FOLDS} "
+        f"folds ({killed_tasks} tasks, {wall_k:.3f} s, WAL on, a checkpoint "
+        f"every {CHAOS_CHECKPOINT_EVERY} folds) and resumed from the spilled "
+        f"journal ({r.tasks} tasks, {r.recovered_tasks} recovered, "
+        f"{wall_r:.3f} s): {r.output} nodes; "
+        f"{killed_tasks + r.tasks} tasks against {clean_tasks} unkilled "
+        f"({out['uts_kill_resume']['recovery_overhead_pct']:.2f} % "
+        f"overhead); journal {journal['bytes']} bytes, {journal['folds']} "
+        f"folds, {journal['checkpoints']} checkpoints, "
+        f"{journal['tail_folds']} folds replayed past the last; the master "
+        f"spent {wal.encode_s:.3f} s encoding and {wal.emit_s:.3f} s "
+        f"writing it")
+
+    # 6: Mariani-Silver killed at half its folds, resumed
+    p = ms_params(CHAOS_MS_SIDE, MS_DWELL)
+    expected, rects = mariani_silver_over(naive_render(p, device=dev), p)
+    half = len(rects) // 2
+    killed, _ = chaos_path(
+        paths, f"elastic MS {CHAOS_MS_SIDE}^2 killed after {half} folds",
+        "mandelbrot",
+        lambda: killed_run(elastic_pool, ms_spec(p, device=dev), half))
+
+    def resume():
+        with elastic_pool() as pool:
+            return run_irregular(pool, ms_spec(p, device=dev),
+                                 resume_from=killed.events)
+    name = f"elastic MS {CHAOS_MS_SIDE}^2 resumed"
+    r, _ = chaos_path(paths, name, "mandelbrot", resume)
+    img = r.output["image"]
+    if img.shape != expected.shape or not np.array_equal(img, expected):
+        raise AssertionError(f"{name}: image differs from Mariani-Silver "
+                             f"over naive_render on "
+                             f"{int((img != expected).sum())} pixels")
+    out["ms_kill_resume"] = {"tasks": len(rects), "killed_after": half,
+                             "killed_tasks": killed.snapshot()["submitted"],
+                             "resumed_tasks": r.tasks,
+                             "recovered_tasks": r.recovered_tasks}
+    log(f"[chaos] MS {CHAOS_MS_SIDE}^2 max_dwell {MS_DWELL}: killed after "
+        f"{half} of {len(rects)} folds, resumed ({r.tasks} tasks, "
+        f"{r.recovered_tasks} recovered): equal to Mariani-Silver over "
+        f"naive_render, pixel for pixel")
+
+    # 7: BC at BC_SCALED, killed at half its folds, resumed
+    def bc_unkilled():
+        with elastic_pool() as pool:
+            return run_irregular(pool, bc_spec(
+                BC_SCALED, n_tasks=BC_SCALED_TASKS, device=dev))
+    want, _ = chaos_path(paths, "elastic BC_SCALED", "bc_forward_level",
+                         bc_unkilled)
+    path = JOURNAL_DIR / "bc.jsonl"
+    from repro_torch.trace import TraceStore
+    store = TraceStore(path=str(path))
+    try:
+        half = BC_SCALED_TASKS // 2
+        chaos_path(paths, f"elastic BC_SCALED killed after {half} folds",
+                   "bc_forward_level",
+                   lambda: killed_run(lambda: elastic_pool(trace=store),
+                                      bc_spec(BC_SCALED,
+                                              n_tasks=BC_SCALED_TASKS,
+                                              device=dev), half))
+        store.flush()
+        bc_journal = {"bytes": path.stat().st_size, **journal_tail(path)}
+
+        def resume():
+            with elastic_pool() as pool:
+                return run_irregular(pool, bc_spec(
+                    BC_SCALED, n_tasks=BC_SCALED_TASKS, device=dev),
+                    resume_from=str(path))
+        r, _ = chaos_path(paths, "elastic BC_SCALED resumed",
+                          "bc_forward_level", resume)
+    finally:
+        store.close()
+        path.unlink(missing_ok=True)
+    if not np.array_equal(r.output.view(np.uint32),
+                          want.output.view(np.uint32)):
+        raise AssertionError("BC_SCALED resumed: the map differs from the "
+                             "unkilled run's")
+    # a fold journals a task's whole float32 map as JSON: scale by the
+    # vertices and the tasks of the paper's run
+    n_bc = 2 ** BC_SCALED.scale
+    per_value = bc_journal["bytes"] / (bc_journal["folds"] * n_bc)
+    bc_journal["paper_bytes_reckoned"] = per_value * 128 * 2 ** 17
+    out["bc_kill_resume"] = {"journal": bc_journal,
+                             "resumed_tasks": r.tasks,
+                             "recovered_tasks": r.recovered_tasks}
+    log(f"[chaos] BC_SCALED ({BC_SCALED_TASKS} tasks) killed after {half} "
+        f"folds and resumed from the spilled journal: bit-equal to the "
+        f"unkilled run; journal {bc_journal['bytes']} bytes for "
+        f"{bc_journal['folds']} folds ({per_value:.2f} bytes a value), "
+        f"{bc_journal['paper_bytes_reckoned'] / 1e9:.3f} GB by that rate "
+        f"for the paper's 128 tasks of 131,072 values")
+
+    # 8: resumes across devices: the card's journals on the CPU, and a
+    # journal written on the CPU resumed on the card
+    cpu = torch.device("cpu")
+    uts_mk = lambda d: uts_spec(uts_p, device=d)  # noqa: E731
+    ms_mk = lambda d: ms_spec(ms_p, device=d)  # noqa: E731
+
+    def sim_resume(spec, trace, **kw):
+        with make_pool("sim", max_concurrency=16) as pool:
+            return run_irregular(pool, spec, resume_from=trace, **kw)
+    t0 = time.monotonic()
+    r_uts = sim_resume(uts_mk(cpu), journals["uts"], **uts_kw)
+    r_ms = sim_resume(ms_mk(cpu), journals["ms"])
+    cpu_s = time.monotonic() - t0
+    if r_uts.output != bases["uts"].output:
+        raise AssertionError(f"UTS journal of the card resumed on the CPU: "
+                             f"{r_uts.output} != {bases['uts'].output}")
+    if not same_image(r_ms.output, bases["ms"].output):
+        raise AssertionError("MS journal of the card resumed on the CPU: the "
+                             "image differs")
+    killed = killed_run(lambda: make_pool("sim", max_concurrency=16),
+                        uts_mk(cpu), 5, **uts_kw)
+    r, _ = chaos_path(paths, "sim UTS journal of the CPU resumed",
+                      "uts_expand",
+                      lambda: sim_resume(uts_mk(dev), killed.events,
+                                         **uts_kw))
+    if r.output != bases["uts"].output:
+        raise AssertionError(f"UTS journal of the CPU resumed on the card: "
+                             f"{r.output} != {bases['uts'].output}")
+    out["cross_device"] = {"card_to_cpu_s": cpu_s,
+                           "cpu_to_card_recovered": r.recovered_tasks}
+    log(f"[chaos] the card's UTS and MS journals resume on the CPU "
+        f"({cpu_s:.3f} s), and a journal of the CPU on the card: outputs "
+        f"bit-equal to the unkilled runs")
+
+    # 9: the hybrid and speculative pools
+    p12 = UTSParams(seed=19, b0=4.0, max_depth=CHAOS_POOL_DEPTH)
+    want = uts_sequential(p12, device=dev)
+    policy = make_routing_policy("cost_per_deadline",
+                                 deadline_s=CHAOS_DEADLINE_S,
+                                 alpha_s_per_cost=CHAOS_ALPHA_S)
+
+    def hybrid():
+        with make_pool("hybrid", local_concurrency=4, elastic_concurrency=16,
+                       policy=policy) as pool:
+            return run_irregular(pool, uts_spec(p12, device=dev)), \
+                pool.placement_counts()
+
+    def speculative():
+        with make_pool("speculative", inner="elastic",
+                       inner_cfg=ELASTIC_CFG, **CHAOS_SPECULATION) as pool:
+            r = run_irregular(pool, uts_spec(p12, device=dev))
+        # the watchdog thread sleeps out its poll after shutdown; a process
+        # that exits while it still runs aborts
+        pool._thread.join(timeout=5)
+        snap = pool.inner.stats.snapshot()
+        return r, {"clones": pool.duplicates,
+                   "wins_by_clone": pool.wins_by_clone,
+                   "submitted": snap["submitted"],
+                   "completed": snap["completed"], "failed": snap["failed"]}
+    pools = {}
+    for name, fn in (("hybrid", hybrid), ("speculative", speculative)):
+        label = f"{name} UTS depth {CHAOS_POOL_DEPTH}"
+        (r, info), wall = chaos_path(paths, label, "uts_expand", fn)
+        if r.output != want:
+            raise AssertionError(f"{label}: {r.output} nodes, uts_sequential "
+                                 f"{want}")
+        paths[label]["tasks"] = r.tasks
+        pools[name] = {"seconds": wall, "tasks": r.tasks, **info}
+        log(f"[chaos] {label}: {r.output} nodes (= uts_sequential), "
+            f"{r.tasks} tasks, {wall:.3f} s; "
+            + ", ".join(f"{k} {v}" for k, v in info.items()))
+    spec_info = pools["speculative"]
+    if spec_info["failed"] or spec_info["completed"] != \
+            spec_info["submitted"]:
+        raise AssertionError(f"speculative: not every invocation (clones "
+                             f"included) finished: {spec_info}")
+    out["pools"] = pools
+    out["seconds"] = time.monotonic() - t_phase
+    log(f"[chaos] phase {out['seconds']:.1f} s")
+    return out
+
+
 # -- the model slice: gemma3-1b prefill, decode and serving ----------------------
 
 #: H100 SXM dense tensor-core peaks (NVIDIA data sheet, 700 W): bf16, and
@@ -2385,6 +3163,7 @@ def main() -> int:
     ms = phase_ms(dev, MS_SIDE, MS_DWELL, sha1["sm_clock_hz"])
     paper = phase_ms_paper_size(dev)
     bc = phase_bc(dev)
+    chaos = phase_chaos(dev, uts)
     model = phase_model(dev)
     # run_path has already required a launch on every path that runs a
     # hand kernel
@@ -2410,6 +3189,10 @@ def main() -> int:
                      f"{bc_task['edges']} edges; state [{bc_task['vertices']}"
                      f", {bc_task['sources']}]; a task's {k['levels']} "
                      f"levels summed"}
+    # the chaos phase's paths, each with the launches of the kernels it runs
+    for path, rec in chaos["paths"].items():
+        for name, n in rec["launches"].items():
+            kernels[name]["launches_by_path"][path] = n
     # the flash line is measured on the prefill's own operands: a global
     # (causal, S = 32,768) layer, with the local (window 512) one beside it
     glob, loc = (model["main_path_operands"][k] for k in ("global", "local"))
@@ -2445,7 +3228,8 @@ def main() -> int:
               "seconds": time.monotonic() - t_start, "build": build,
               "kernels": kernels,
               "flash_fixed_shapes": flash_fixed, "uts": uts, "ms": ms,
-              "ms_paper_size": paper, "bc": bc, "model": model}
+              "ms_paper_size": paper, "bc": bc, "chaos": chaos,
+              "model": model}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"[done] {report['seconds']:.1f} s; report in "

@@ -3,14 +3,19 @@
 A copy of ``repro.core`` (the reference package's pool abstraction and
 ``run_irregular`` master loop), kept here so the port imports nothing of
 the JAX package.  The modules are copied unchanged apart from their
-imports; this slice registers the ``local`` and ``elastic`` pools, and
-the WAL-resume paths of ``run_irregular`` raise until the chaos slice is
-ported.
+imports, except ``simulate_uts_pool``, which takes a ``device`` like
+every entry point of the port and traverses the tree there.
 
-    Pool, make_pool("local"|"elastic", **cfg)
+    Pool, make_pool("local"|"elastic"|"hybrid"|"sim"|"speculative", **cfg)
     WorkSpec, run_irregular(pool, spec, ...), IrregularResult
+    (``resume_from=``, ``wal=``, ``checkpoint_every=``: WAL crash
+    recovery through ``repro_torch.chaos``)
+    LocalExecutor, ElasticExecutor, HybridExecutor, SimPool,
+    simulate_uts_pool
     StagedController, OccupancyController, TaskShape
-    ProviderModel, AutoscalePolicy, serverless_cost, vm_cost
+    ProviderModel, AutoscalePolicy, serverless_cost, vm_cost,
+    emr_cluster_cost, price_performance
+    characterize, coefficient_of_variation
 """
 from .futures import (CompletionQueue, ElasticFuture, Task, TaskRecord,
                       TaskState, WorkerKilledError)
@@ -28,15 +33,25 @@ from .executor import (
     LocalExecutor,
     as_completed,
 )
+from .hybrid import HybridExecutor
+from .simpool import SimPool, simulate_uts_pool
 from .adaptive import OccupancyController, StagedController, TaskShape
 from .irregular import IrregularResult, WorkSpec, run_irregular
 from .costmodel import (
     CostReport,
     LambdaPrice,
     VMPrice,
+    emr_cluster_cost,
     price_performance,
     serverless_cost,
     vm_cost,
+)
+from .characterization import (
+    Characterization,
+    characterize,
+    coefficient_of_variation,
+    duration_cdf,
+    task_generation_rate,
 )
 
 __all__ = [
@@ -47,10 +62,13 @@ __all__ = [
     "Clock", "WallClock", "VirtualClock", "Event", "EventLog",
     "ElasticFuture", "Task", "TaskRecord", "TaskState", "CompletionQueue",
     "WorkerKilledError",
-    "BaseExecutor", "ElasticExecutor", "LocalExecutor",
+    "BaseExecutor", "ElasticExecutor", "LocalExecutor", "HybridExecutor",
+    "SimPool", "simulate_uts_pool",
     "ExecutorStats", "ConcurrencyTracker",
     "FunctionThrottledError", "as_completed",
     "StagedController", "OccupancyController", "TaskShape",
     "CostReport", "LambdaPrice", "VMPrice",
-    "serverless_cost", "vm_cost", "price_performance",
+    "serverless_cost", "vm_cost", "emr_cluster_cost", "price_performance",
+    "Characterization", "characterize", "coefficient_of_variation",
+    "duration_cdf", "task_generation_rate",
 ]

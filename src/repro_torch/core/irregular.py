@@ -17,7 +17,7 @@ characterization, and an optional ``execute_batch`` fused body: with
 ``run_irregular(..., batching=True)`` the driver drains ready items
 through ``pool.submit_batch`` in chunks of up to ``idle_capacity``,
 replacing N tiny per-task kernel dispatches with one vectorized call
-(the application-level overhead amortization of §5.2).  Any :class:`~repro.core.pool.Pool` backend works —
+(the application-level overhead amortization of §5.2).  Any :class:`~repro_torch.core.pool.Pool` backend works —
 ``local``, ``elastic``, ``hybrid``, or the virtual-time ``sim`` pool —
 and stragglers can be speculatively re-dispatched (stateless tasks make
 duplication safe; the first completion wins at the future level).
@@ -38,18 +38,6 @@ from .telemetry import (CHECKPOINT, FOLDED, PARENT_ROOT, REQUEUE,
                         WORKER_KILLED)
 
 __all__ = ["WorkSpec", "IrregularResult", "run_irregular"]
-
-
-def _chaos_not_ported(what: str) -> None:
-    raise NotImplementedError(
-        f"{what} needs repro_torch.chaos (WAL crash recovery), which the "
-        f"PyTorch port has not ported yet: it comes with the chaos slice")
-
-
-def recover_frontier(*args: Any, **kwargs: Any) -> Any:
-    """Stands in for ``chaos.recovery.recover_frontier`` until the chaos
-    slice of the port lands; ``resume_from=`` raises here."""
-    _chaos_not_ported("resume_from=")
 
 
 def _no_children(result: Any, shape: TaskShape) -> Iterable[Any]:
@@ -100,7 +88,7 @@ class WorkSpec:
     #: ``run_irregular(..., batching=True)``.
     execute_batch: Optional[
         Callable[[List[Any], TaskShape], List[Any]]] = None
-    #: WAL codecs (master crash recovery, ``repro.chaos``).
+    #: WAL codecs (master crash recovery, ``repro_torch.chaos``).
     #: ``encode_item`` maps a work item to a JSON-able value used as a
     #: canonical *matching key* — it is never decoded, so it only needs
     #: to be injective, not invertible.  ``encode_result`` /
@@ -281,7 +269,7 @@ def run_irregular(
                           speculates normally; the ``speculative``
                           pool wrapper additionally re-dispatches the
                           *remainder* of a straggling fused batch —
-                          see ``repro.runtime.straggler``).
+                          see ``repro_torch.runtime.straggler``).
     arrivals              open-loop mode: ``(t, item)`` pairs replacing
                           ``spec.seed`` — each item is dispatched at
                           virtual time ``t`` (the pool is run to that
@@ -308,7 +296,7 @@ def run_irregular(
                           ``TraceStore``/``EventLog``, spill-file path,
                           or event iterable): the frontier and partial
                           accumulator are reconstructed via
-                          ``repro.chaos.recover_frontier`` and the run
+                          ``repro_torch.chaos.recover_frontier`` and the run
                           continues from there — for order-insensitive
                           specs the resumed output is bit-identical to
                           the unkilled run.  Requires the spec's WAL
@@ -486,6 +474,7 @@ def run_irregular(
                 f"arrivals= (open-loop release times are not "
                 f"journaled)")
     elif resume_from is not None:
+        from ..chaos.recovery import recover_frontier
         rec = recover_frontier(resume_from, spec, shape=shape,
                                initial_shape=initial_shape)
         state = rec.partial
@@ -802,7 +791,7 @@ def _run_sharded(
     """K-master sharded drive behind ``run_irregular(shards=K)``.
 
     The frontier is partitioned across K shards (seeds round-robin);
-    each shard owns a :class:`~repro.core.pool.ShardView` slice of the
+    each shard owns a :class:`~repro_torch.core.pool.ShardView` slice of the
     ONE pool's capacity, folds completions into its own accumulator
     with ``spec.reduce``, and queues ``spec.split`` children locally.
     A shard whose frontier drains while it still has free slots steals
@@ -843,6 +832,7 @@ def _run_sharded(
 
     seed_shape = initial_shape or shape
     if resume_from is not None:
+        from ..chaos.recovery import recover_frontier
         rec = recover_frontier(resume_from, spec, shape=shape,
                                initial_shape=initial_shape)
         # the journal's partial joins as one extra accumulator at the
@@ -979,7 +969,10 @@ def _run_sharded(
                         # dispatch — steals move items between
                         # in-memory frontiers only, so the WAL left
                         # behind is exactly a real crash's
-                        _chaos_not_ported("kill_master_after")
+                        from ..chaos.recovery import MasterKilledError
+                        raise MasterKilledError(
+                            f"{spec.name}: injected master kill on "
+                            f"steal #{steals}")
                     fill(s)
         if not owner:
             if any(frontiers):  # pragma: no cover — slots >= 1 always

@@ -23,10 +23,7 @@ Registered backends:
 ``speculative`` straggler-duplicating wrapper around any of the above
 ==============  ====================================================
 
-Drive any of them with ``repro.core.run_irregular`` and a ``WorkSpec``.
-
-This copy in ``repro_torch.core`` registers ``local`` and ``elastic``
-only; the other backends have not been ported yet.
+Drive any of them with ``repro_torch.core.run_irregular`` and a ``WorkSpec``.
 """
 from __future__ import annotations
 
@@ -99,7 +96,7 @@ class Pool(abc.ABC):
 
     @property
     def events(self):
-        """The pool's :class:`~repro.core.telemetry.EventLog` timeline
+        """The pool's :class:`~repro_torch.core.telemetry.EventLog` timeline
         (composite pools return a merged view)."""
         return self.stats.log
 
@@ -344,7 +341,7 @@ class Pool(abc.ABC):
         every read, so ``resize`` redistributes across shards), and its
         submissions route trace events to shard ``i``'s segment when
         the pool records to a
-        :class:`~repro.trace.store.ShardedTraceStore`."""
+        :class:`~repro_torch.trace.store.ShardedTraceStore`."""
         if shards <= 0:
             raise ValueError("shards must be positive")
         return [ShardView(self, i, shards) for i in range(shards)]
@@ -374,7 +371,7 @@ class ShardView:
     single provider ramp and a single billing timeline, exactly as if
     one master drove the pool — and (b) its submissions are routed to
     its own trace segment when the pool records to a
-    :class:`~repro.trace.store.ShardedTraceStore`.
+    :class:`~repro_torch.trace.store.ShardedTraceStore`.
 
     ``slots`` is re-derived from ``pool.capacity`` on every read:
     capacity % shards extra slots go to the lowest-indexed views, and a
@@ -433,9 +430,9 @@ def registered_pools() -> List[str]:
 def _ensure_backends() -> None:
     # Backends self-register at import; importing the package normally
     # pulls them all in, but guard direct `repro_torch.core.pool` users too.
-    if {"local", "elastic"} <= _REGISTRY.keys():
+    if {"local", "elastic", "hybrid", "sim"} <= _REGISTRY.keys():
         return
-    from . import executor  # noqa: F401
+    from . import executor, hybrid, simpool  # noqa: F401
 
 
 def make_pool(kind: str, **cfg: Any) -> Pool:
@@ -452,3 +449,15 @@ def make_pool(kind: str, **cfg: Any) -> Pool:
             f"unknown pool kind {kind!r}; registered: "
             f"{', '.join(sorted(_REGISTRY))}") from None
     return factory(**cfg)
+
+
+@register_pool("speculative")
+def _make_speculative(inner: Any = "elastic",
+                      inner_cfg: Dict[str, Any] = None,
+                      **kw: Any) -> Pool:
+    """Wrap an inner backend (instance or kind name) with deadline-based
+    straggler duplication (``repro_torch.runtime.straggler``)."""
+    from ..runtime.straggler import SpeculativeExecutor
+    pool = inner if isinstance(inner, Pool) \
+        else make_pool(inner, **(inner_cfg or {}))
+    return SpeculativeExecutor(pool, **kw)

@@ -1,6 +1,7 @@
 """The port stands alone: it runs its main paths (UTS, Mariani-Silver,
-betweenness centrality, and the model's prefill, decode and serving
-loop) without importing jax or any module of the reference package, no
+betweenness centrality, a master killed and resumed from its journal, and
+the model's prefill, decode and serving loop) without importing jax or
+any module of the reference package, no
 source file of it (nor ``chip_smoke.py``) imports either, and
 ``device=None`` never falls back to the CPU."""
 import json
@@ -34,7 +35,24 @@ from repro_torch.algorithms import (MSParams, RMATParams, UTSParams,
                                     naive_render, rmat_graph, uts_sequential,
                                     uts_spec)
 from repro_torch.core import make_pool, run_irregular
+import repro_torch.core.hybrid, repro_torch.core.simpool, repro_torch.runtime
+import repro_torch.trace.store
+from repro_torch.chaos import MasterKilledError, kill_master_after
+from repro_torch.core import TaskShape
 n = uts_sequential(UTSParams(max_depth=5), device="cpu")
+shape = TaskShape(4, 20)
+killed = make_pool("sim", max_concurrency=4)
+try:
+    run_irregular(killed, kill_master_after(
+        uts_spec(UTSParams(max_depth=5), device="cpu"), 3), wal=True,
+        shape=shape)
+except MasterKilledError:
+    pass
+with make_pool("sim", max_concurrency=4) as pool:
+    resumed = run_irregular(pool, uts_spec(UTSParams(max_depth=5),
+                                           device="cpu"),
+                            resume_from=killed.events, shape=shape)
+killed.shutdown()
 p = MSParams(width=32, height=32, max_dwell=32, initial_subdivision=2,
              max_depth=2)
 with make_pool("elastic", max_concurrency=4, invoke_overhead=0.0,
@@ -63,6 +81,7 @@ rep = serve("gemma3-1b", smoke=True, n_requests=3, n_slots=2, max_seq=32,
             device="cpu")
 print(json.dumps({
     "uts": n, "uts_pool": r.output, "ms_equal": same,
+    "uts_resumed": resumed.output, "recovered": resumed.recovered_tasks,
     "bc_equal": bc_same, "bc_tasks": b.tasks,
     "prefill": list(logits.shape), "decode": list(step.shape),
     "served": rep["requests"],
@@ -81,6 +100,7 @@ def test_main_path_runs_without_jax_or_repro():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["uts"] == 416 and res["uts_pool"] == 416
+    assert res["uts_resumed"] == 416 and res["recovered"] > 0
     assert res["ms_equal"]
     assert res["bc_equal"] and res["bc_tasks"] == 4
     assert res["prefill"] == res["decode"] == [1, 256]

@@ -249,11 +249,15 @@ def test_wal_json_matches_reference():
     assert np.array_equal(dig, frontier.digests)
 
 
-def test_resume_from_waits_for_the_chaos_slice():
+def test_resume_from_waits_for_the_chaos_slice(uts_expected):
+    """The chaos slice has landed: ``resume_from=`` an empty journal (a
+    master that died before its first fold) recovers the seeds and runs
+    the whole tree."""
     with make_pool("local", max_concurrency=2, invoke_overhead=0.0) as pool:
-        with pytest.raises(NotImplementedError, match="chaos"):
-            run_irregular(pool, uts_spec(UTSParams(**UTS_P), device="cpu"),
+        r = run_irregular(pool, uts_spec(UTSParams(**UTS_P), device="cpu"),
                           resume_from=[])
+    assert r.output == uts_expected
+    assert r.recovered_tasks > 0
 
 
 def test_expected_tree_size_matches_reference():

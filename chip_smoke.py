@@ -96,11 +96,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``simulate_uts_pool``), every task body on the card, each derived
    value equal to the JAX package's (virtual time and dollars are the
    provider model's, a function of the task results alone); then on the
-   elastic pool: Table 1's depth 14 at 30 % mortality; depth 14 killed
-   after 4,000 folds with the WAL spilled to a file (a checkpoint every
-   1,000 folds) and resumed from that file, both counting 117,669,204
-   nodes, with the journal's size and the master's time to encode and
-   write it; Mariani-Silver 256² (sd-64, max dwell 5,000,000) killed at
+   elastic pool: Table 1's depth 14 at 30 % mortality; its depth 12 (cut
+   from 14 to leave time for phase 9) unkilled, and killed after 264 of
+   its 529 folds with the WAL spilled to a file (a checkpoint every 64
+   folds) and resumed from that file, all counting 7,356,928 nodes, with
+   the journal's size and the master's time to encode and write it;
+   Mariani-Silver 256² (sd-64, max dwell 5,000,000) killed at
    half its folds and resumed, equal to Mariani-Silver over
    ``naive_render``; BC_SCALED's 32 tasks killed at half and resumed from
    a spilled journal, bit-equal to an unkilled run; the card's UTS and MS
@@ -108,7 +109,26 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    resumed on the card, bit-equal; UTS depth 12 on a ``hybrid`` pool
    (cost-per-deadline routing) and on a ``speculative`` elastic pool
    whose clones must all finish, both equal to ``uts_sequential``;
-9. the model path, gemma3-1b at full width with random weights from a
+9. the harness (``phase_harness``, after phase 8): the reference's
+   ``trace_record_replay`` row at its own shapes (UTS depth 9 on a 512-wide
+   AWS Lambda sim pool, every body on the card, recorded through a
+   4,096-event ``TraceStore`` ring spilled under ``build/harness``; three
+   what-if replays, whose bodies are virtual and launch nothing; the Fig.
+   4 artifacts; ``calibrate`` recovering a known preset), every value equal
+   to the JAX package's; Figs. 7-9's cost-performance row at Table 1's
+   seed and branching, depth cut from 14 to 12 (``FIG7_9_DEPTH``), on its
+   three pools (elastic at (4, 1000), elastic under the Listing-5
+   controller, a 2-thread local pool as the VM), each counting the tree,
+   with wall times, costs and price-performance beside the paper's
+   figures; ``serve`` open loop at full width (4 req/s, two tenants, MMPP,
+   16 requests' horizon), every request answered and its spilled timeline
+   replayed to one root task a request, each decode step timed;
+   ``serve_traffic_sim`` and the host-only rows ``serving_knee``,
+   ``dag_pipeline`` and ``faas_parallelism`` through the port's
+   ``traffic`` and ``dag``, equal to the JAX package's; the three example
+   twins (``repro_torch.examples``) at their default sizes, each passing
+   its own oracle;
+10. the model path, gemma3-1b at full width with random weights from a
    seed: ``prefill`` of prefill_32k's S = 32,768 (batch cut from 32 to 1),
    whose 26 attention layers must each launch the flash kernel, then one
    global and one local layer's own operands again through kernel and
@@ -119,13 +139,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    steps under ``torch.profiler`` (device busy time, largest kernels, the
    device's idle share); then ``serve`` (16 requests, 4 slots, max_seq
    256) through the ElasticBatcher, which must answer all;
-10. one JSON line with every kernel's launches on each main path, error,
+11. one JSON line with every kernel's launches on each main path, error,
    times and bound, then the last line ``{"ok": true, "device": ...}``.
 
 Each of the eleven main-path runs (three UTS, two Mariani-Silver, three BC,
-prefill, decode, serve), and each run of phase 8 on the card, is driven with
-the launch counts set to 0 just before it and read just after it, and fails
-unless its kernel launched (BC: both level kernels).  Decode and
+prefill, decode, serve), and each run of phases 8 and 9 on the card, is
+driven with the launch counts set to 0 just before it and read just after
+it, and fails unless its kernel launched (BC: both level kernels); phase
+9's replays, fit and host-only rows must launch none.  Decode and
 serve run no hand kernel (the decode product is plain PyTorch, as the
 reference leaves it to XLA, and the batcher's prefill only counts
 tokens); their flash launches are read and reported, 0.  The depth 4..10
@@ -206,6 +227,10 @@ UTS_BYTES_PER_LANE = 44           # 20 B parent + 4 B index in, 20 B out
 UTS_BYTES_PER_NODE = 24           # a digest and a depth
 #: the published tree sizes above and the depth-14 tree
 UTS_DEPTH14_NODES = 117_669_204
+#: deeper trees of seed 19, b0 4: depths 12 and 13 as ``uts_sequential``'s
+#: plain version counts them on the CPU (each run holds the card's count to
+#: them), and depth 14
+UTS_DEEP_NODES = {12: 7_356_928, 13: 29_416_589, 14: UTS_DEPTH14_NODES}
 #: a sampled main-path ``uts_expand`` call is replayed through both
 #: versions with at most this budget (the plain version takes some 8 ms a
 #: generation of 8,192 nodes on the card)
@@ -1920,10 +1945,15 @@ COST_PERF_ROW = {"nodes": 461_459, "serverless_vt_s": 6.482,
 FIG4_SIM_ROW = {"nodes": 1_841_891, "improvement_pct": 28.5}
 FIG4_SIM_VTIMES = {"static": 0.20246, "dynamic": 0.14481}
 FIG4_PAPER_PCT = 41.56
-#: the depth-14 kill: the master dies at fold 4,001 of 8,249; the journal
-#: holds a checkpoint every 1,000 folds
-CHAOS_KILL_FOLDS = 4000
-CHAOS_CHECKPOINT_EVERY = 1000
+#: the UTS kill: Table 1's row with its depth cut from 14 to 12, so that
+#: the smoke (with phase 9) stays inside its time (at depth 14 the kill and
+#: the resume took 115 s for a 2.38 GB journal); the master dies at fold
+#: 265 of depth 12's 529, about half way as at depth 14 (fold 4,001 of
+#: 8,249), and the journal holds a checkpoint every 64 folds (four before
+#: the kill, as at depth 14)
+CHAOS_KILL_DEPTH = 12
+CHAOS_KILL_FOLDS = 264
+CHAOS_CHECKPOINT_EVERY = 64
 #: Mariani-Silver kill-and-resume: the sd-64 geometry on 256x256 pixels
 CHAOS_MS_SIDE = 256
 #: the hybrid and speculative pools: UTS at depth 12
@@ -2368,6 +2398,81 @@ def fig4_sim_row(dev, paths: dict) -> dict:
     return row
 
 
+def uts_kill_resume(dev, paths: dict) -> dict:
+    """UTS (seed 19, b0 4, ``CHAOS_KILL_DEPTH``) on the elastic pool: an
+    unkilled run, then the master killed after ``CHAOS_KILL_FOLDS`` folds
+    with the WAL spilled to a file under ``build/chaos`` (a checkpoint
+    every ``CHAOS_CHECKPOINT_EVERY`` folds) and resumed from that file;
+    both count the tree.  Returns the journal's size and the master's
+    time to encode and write it beside the tasks of each run."""
+    from repro_torch.algorithms import UTSParams, uts_spec
+    from repro_torch.core import run_irregular
+    kparams = UTSParams(seed=19, b0=4.0, max_depth=CHAOS_KILL_DEPTH)
+
+    def unkilled():
+        with elastic_pool() as pool:
+            return run_irregular(pool, uts_spec(kparams, device=dev))
+    name = f"elastic UTS depth {CHAOS_KILL_DEPTH}"
+    base, wall_u = chaos_path(paths, name, "uts_expand", unkilled)
+    paths[name]["tasks"] = base.tasks
+    JOURNAL_DIR.mkdir(parents=True, exist_ok=True)
+    path = JOURNAL_DIR / f"uts{CHAOS_KILL_DEPTH}.jsonl"
+    wal = TimedWAL()
+    store = wal.store(path)
+    try:
+        name = f"elastic UTS depth {CHAOS_KILL_DEPTH} killed after " \
+               f"{CHAOS_KILL_FOLDS} folds"
+        killed, wall_k = chaos_path(
+            paths, name, "uts_expand",
+            lambda: killed_run(lambda: elastic_pool(trace=store),
+                               wal.wrap(uts_spec(kparams, device=dev)),
+                               CHAOS_KILL_FOLDS,
+                               checkpoint_every=CHAOS_CHECKPOINT_EVERY))
+        store.flush()
+        killed_tasks = killed.snapshot()["submitted"]
+        journal = {"bytes": path.stat().st_size, **journal_tail(path),
+                   "encode_s": wal.encode_s, "emit_s": wal.emit_s}
+        paths[name]["tasks"] = killed_tasks
+
+        def resume():
+            with elastic_pool() as pool:
+                return run_irregular(pool, uts_spec(kparams, device=dev),
+                                     resume_from=str(path))
+        name = f"elastic UTS depth {CHAOS_KILL_DEPTH} resumed from the " \
+               f"journal"
+        r, wall_r = chaos_path(paths, name, "uts_expand", resume)
+    finally:
+        store.close()
+        path.unlink(missing_ok=True)
+    if not r.output == base.output == UTS_DEEP_NODES[CHAOS_KILL_DEPTH]:
+        raise AssertionError(f"{name}: {r.output} nodes, unkilled "
+                             f"{base.output}")
+    clean_tasks = base.tasks
+    paths[name].update(tasks=r.tasks, recovered_tasks=r.recovered_tasks)
+    rec = {
+        "depth": CHAOS_KILL_DEPTH, "nodes": r.output,
+        "killed_tasks": killed_tasks, "resumed_tasks": r.tasks,
+        "unkilled_tasks": clean_tasks,
+        "recovery_overhead_pct": ((killed_tasks + r.tasks) / clean_tasks
+                                  - 1) * 100,
+        "recovered_tasks": r.recovered_tasks, "journal": journal,
+        "killed_s": wall_k, "resumed_s": wall_r, "unkilled_s": wall_u}
+    log(f"[chaos] UTS depth {CHAOS_KILL_DEPTH} killed after "
+        f"{CHAOS_KILL_FOLDS} "
+        f"folds ({killed_tasks} tasks, {wall_k:.3f} s, WAL on, a checkpoint "
+        f"every {CHAOS_CHECKPOINT_EVERY} folds) and resumed from the spilled "
+        f"journal ({r.tasks} tasks, {r.recovered_tasks} recovered, "
+        f"{wall_r:.3f} s): {r.output} nodes; "
+        f"{killed_tasks + r.tasks} tasks against {clean_tasks} unkilled "
+        f"({rec['recovery_overhead_pct']:.2f} % "
+        f"overhead); journal {journal['bytes']} bytes, {journal['folds']} "
+        f"folds, {journal['checkpoints']} checkpoints, "
+        f"{journal['tail_folds']} folds replayed past the last; the master "
+        f"spent {wal.encode_s:.3f} s encoding and {wal.emit_s:.3f} s "
+        f"writing it")
+    return rec
+
+
 def phase_chaos(dev, uts: dict) -> dict:
     """Faults, master kills and resumes, and the hybrid, sim and
     speculative pools on the card (phase 8 of the module docstring).
@@ -2430,59 +2535,8 @@ def phase_chaos(dev, uts: dict) -> dict:
         f"{paths[name]['launches']['uts_expand']} uts_expand launches for "
         f"{bodies.n} task bodies (a killed attempt dies before its body)")
 
-    # 5: kill at fold 4,001 and resume from the spilled journal
-    JOURNAL_DIR.mkdir(parents=True, exist_ok=True)
-    path = JOURNAL_DIR / f"uts{UTS_DEPTH}.jsonl"
-    wal = TimedWAL()
-    store = wal.store(path)
-    try:
-        name = f"elastic UTS depth {UTS_DEPTH} killed after " \
-               f"{CHAOS_KILL_FOLDS} folds"
-        killed, wall_k = chaos_path(
-            paths, name, "uts_expand",
-            lambda: killed_run(lambda: elastic_pool(trace=store),
-                               wal.wrap(uts_spec(params, device=dev)),
-                               CHAOS_KILL_FOLDS,
-                               checkpoint_every=CHAOS_CHECKPOINT_EVERY))
-        store.flush()
-        killed_tasks = killed.snapshot()["submitted"]
-        journal = {"bytes": path.stat().st_size, **journal_tail(path),
-                   "encode_s": wal.encode_s, "emit_s": wal.emit_s}
-        paths[name]["tasks"] = killed_tasks
-
-        def resume():
-            with elastic_pool() as pool:
-                return run_irregular(pool, uts_spec(params, device=dev),
-                                     resume_from=str(path))
-        name = f"elastic UTS depth {UTS_DEPTH} resumed from the journal"
-        r, wall_r = chaos_path(paths, name, "uts_expand", resume)
-    finally:
-        store.close()
-        path.unlink(missing_ok=True)
-    if r.output != UTS_DEPTH14_NODES:
-        raise AssertionError(f"{name}: {r.output} nodes")
-    clean_tasks = clean["tasks"]
-    paths[name].update(tasks=r.tasks, recovered_tasks=r.recovered_tasks)
-    out["uts_kill_resume"] = {
-        "killed_tasks": killed_tasks, "resumed_tasks": r.tasks,
-        "unkilled_tasks": clean_tasks,
-        "recovery_overhead_pct": ((killed_tasks + r.tasks) / clean_tasks
-                                  - 1) * 100,
-        "recovered_tasks": r.recovered_tasks, "journal": journal,
-        "killed_s": wall_k, "resumed_s": wall_r,
-        "unkilled_s": clean["seconds"]}
-    log(f"[chaos] UTS depth {UTS_DEPTH} killed after {CHAOS_KILL_FOLDS} "
-        f"folds ({killed_tasks} tasks, {wall_k:.3f} s, WAL on, a checkpoint "
-        f"every {CHAOS_CHECKPOINT_EVERY} folds) and resumed from the spilled "
-        f"journal ({r.tasks} tasks, {r.recovered_tasks} recovered, "
-        f"{wall_r:.3f} s): {r.output} nodes; "
-        f"{killed_tasks + r.tasks} tasks against {clean_tasks} unkilled "
-        f"({out['uts_kill_resume']['recovery_overhead_pct']:.2f} % "
-        f"overhead); journal {journal['bytes']} bytes, {journal['folds']} "
-        f"folds, {journal['checkpoints']} checkpoints, "
-        f"{journal['tail_folds']} folds replayed past the last; the master "
-        f"spent {wal.encode_s:.3f} s encoding and {wal.emit_s:.3f} s "
-        f"writing it")
+    # 5: kill half way and resume from the spilled journal
+    out["uts_kill_resume"] = uts_kill_resume(dev, paths)
 
     # 6: Mariani-Silver killed at half its folds, resumed
     p = ms_params(CHAOS_MS_SIDE, MS_DWELL)
@@ -2642,6 +2696,637 @@ def phase_chaos(dev, uts: dict) -> dict:
     out["pools"] = pools
     out["seconds"] = time.monotonic() - t_phase
     log(f"[chaos] phase {out['seconds']:.1f} s")
+    return out
+
+
+# -- the harness: record, replay and calibrate; Figs. 7-9; traffic; DAGs ----------
+
+#: ``trace_record_replay`` (``benchmarks/run.py:435``) as
+#: ``benchmarks/BENCH_pr10.json`` holds it; a CPU run of the JAX package
+#: gives the same values (``figure_png`` aside, which says whether
+#: matplotlib was importable)
+TRACE_REPLAY_ROW = {
+    "nodes": 115_780, "tasks": 39_529, "events_total": 119_100,
+    "resident_events": 4096, "recorded_vt_s": 1.725,
+    "recorded_usd": 0.027617, "recorded_cold_starts": 512,
+    "replay_same_vt_s": 1.735, "replay_parity_pct": 0.581,
+    "replay_gcf_vt_s": 15.225, "replay_gcf_usd": 0.149721,
+    "gcf_slowdown_pct": 782.6, "replay_ewma_vt_s": 1.761,
+    "replay_ewma_usd": 0.027619, "ewma_resizes": 5, "fitted_cold_s": 0.4,
+    "fitted_warm_ms": 20.0, "fitted_ramp_per_min": 120.0,
+    "fit_within_tolerance": True, "bounded_memory": True}
+#: ``serving_knee`` (``run.py:529``), every derived value, from the same
+#: file (a CPU run of the JAX package gives the same)
+SERVING_KNEE_ROW = {
+    "x1_p99_ms": 838.0, "x1_loss_pct": 0.0, "x2_p99_ms": 838.0,
+    "x2_loss_pct": 0.0, "x4_p99_ms": 2297.35, "x4_loss_pct": 0.24,
+    "x8_p99_ms": 2821.43, "x8_loss_pct": 28.74, "x16_p99_ms": 3026.3,
+    "x16_loss_pct": 71.89, "knee_factor": 4, "knee_rate_rps": 10.0,
+    "knee_p50_ms": 180.75, "knee_p99_ms": 2297.35, "knee_loss_pct": 0.24,
+    "knee_cost_per_mtok_usd": 0.0317, "slo_target_ms": 2000.0,
+    "slo_p99_ms": 1801.94, "static_peak_p99_ms": 530.0,
+    "slo_peak_capacity": 75, "slo_resizes": 33,
+    "slo_provisioned_usd": 0.010785, "static_provisioned_usd": 0.053738,
+    "slo_cost_per_mtok_usd": 0.062, "static_cost_per_mtok_usd": 0.2969,
+    "slo_savings_pct": 79.9, "replay_parity_pct": 0.0,
+    "cost_parity_pct": 0.0, "knee_visible": True, "deterministic": True,
+    "static_knee_violates_target": True, "slo_holds_target": True,
+    "slo_cheaper_than_static": True, "replay_parity_ok": True}
+#: ``dag_pipeline`` (``run.py:1045``), from the same file
+DAG_PIPELINE_ROW = {
+    "montage_nodes": 65, "montage_critical_path": 7,
+    "montage_max_stage_width": 33, "montage_vt_s": 0.091,
+    "montage_vt_fused_s": 0.0911, "sweep_nodes": 36,
+    "sweep_critical_path": 8, "sweep_max_stage_width": 16,
+    "sweep_vt_s": 0.104, "sweep_vt_fused_s": 0.104, "iter_mr_nodes": 55,
+    "iter_mr_critical_path": 10, "iter_mr_max_stage_width": 16,
+    "iter_mr_vt_s": 0.13, "iter_mr_vt_fused_s": 0.1301,
+    "dag_identical_outputs": True}
+#: ``faas_parallelism`` (``run.py:1083``), from the same file
+FAAS_PARALLELISM_ROW = {
+    "aws_lambda_achieved_at_512": 512, "aws_lambda_ramp_latency_s": 0.0,
+    "aws_lambda_cold_share": 0.5, "gcf_achieved_at_512": 146,
+    "gcf_ramp_latency_s": 0.55, "gcf_cold_share": 0.012,
+    "azure_functions_achieved_at_512": 234,
+    "azure_functions_ramp_latency_s": 0.0,
+    "azure_functions_cold_share": 0.008, "prewarmed_achieved_at_512": 512,
+    "prewarmed_ramp_latency_s": 0.0, "prewarmed_cold_share": 0.5,
+    "probe_envelope_monotone": True, "fit_burst": 8,
+    "fit_ramp_per_min": 239.6, "fit_cold_s": 0.3,
+    "probe_fit_recovers": True}
+#: ``serve_traffic_sim`` at these arguments, and its whole report as the JAX
+#: package's ``repro.launch.serve.serve_traffic_sim`` gives it on the CPU
+#: (unrounded: every value must be equal)
+SERVE_SIM_ARGS = dict(provider="aws_lambda", rate=4.0, n_tenants=2,
+                      horizon_s=60.0, seed=0)
+SERVE_SIM_ROW = {
+    "requests": 212, "completed": 212,
+    "lost": {"busy": 0, "cold_blocked": 0, "no_memory": 0},
+    "loss_rate": 0.0, "ttft_p50_s": 0.01355,
+    "ttft_p99_s": 0.26358000000000004, "makespan_s": 59.82481836156087,
+    "tokens": 15845, "serverless_usd": 0.0033653867361297307,
+    "provisioned_usd": 0.005650121734147417,
+    "cost_per_token_usd": 3.565870453863942e-07, "peak_capacity": 8,
+    "cold_starts": 5, "evictions": 0, "resizes": 0,
+    "provider": "aws_lambda", "mode": "traffic-sim"}
+#: Figs. 7-9 (``fig7_9_cost_performance``, ``run.py:305``) at the paper's
+#: Table 1 row (seed 19, b0 4), its depth cut from 14 to 12: the row's
+#: static pool runs at most 1,000 nodes a task, and its master settles
+#: under 1,000 tasks a second, so depth 14 would take some 117,669 tasks
+#: and minutes; at depth 13 the static pool ran 61,335 tasks in 95 s (on
+#: an H100 machine) and the smoke overran its time; depth 12 is some
+#: 15,000 tasks
+FIG7_9_DEPTH = 12
+#: the paper's figures beside the row: UTS serverless beats Spark (EMR) by
+#: up to 55 % in price-performance at the same cost, and the dynamic
+#: optimization gains 41 % in time
+PAPER_SPARK_PCT = 55
+PAPER_DYNAMIC_PCT = 41
+#: open-loop serving at full width: the arrival rate is one a decode step
+#: of 4 slots drains (about 33 ms a step), so the queue empties
+OPEN_LOOP = dict(smoke=False, rate=4.0, n_tenants=2, arrival="mmpp",
+                 n_requests=16, n_slots=4, max_seq=256)
+#: the phase's files: spill files and artifacts (gitignored)
+HARNESS_DIR = ROOT / "build" / "harness"
+
+
+def silent_path(paths: dict, name: str, fn):
+    """``run_path`` of a path that must launch no kernel at all (a replay,
+    a fit, a host-only row); records its wall time under ``name``."""
+    from repro_torch.kernels import launches
+    out, wall, _ = run_path(name, "uts_expand", fn, required=False)
+    fired = {k: launches(k) for k in KERNEL_SOURCES if launches(k)}
+    if fired:
+        raise AssertionError(f"{name}: launched {fired}; it runs no task "
+                             f"body on the card")
+    paths[name] = {"seconds": wall, "launches": {}}
+    return out, wall
+
+
+def trace_replay_row(dev, paths: dict) -> dict:
+    """``trace_record_replay`` on the card at the row's own shapes: UTS
+    depth 9 (chunk 2048, shape (32, 16)) on a 512-wide AWS Lambda sim pool
+    recorded through a ``TraceStore`` with a 4,096-event ring (spilled
+    under ``build/harness``), every body on the card; the Fig. 4
+    artifacts from the traces; replays under the same provider, GCF and
+    EWMA autoscaling (virtual bodies: no launch); and ``calibrate`` on a
+    saturating ``lambda: 0`` workload of a known preset (no launch)."""
+    from repro_torch.algorithms import UTSParams, uts_spec
+    from repro_torch.core import (AutoscalePolicy, ProviderModel, TaskShape,
+                                  make_pool, run_irregular)
+    from repro_torch.trace import (TraceStore, calibrate, extract_workload,
+                                   render_concurrency_figure, replay)
+
+    p = UTSParams(seed=19, b0=4.0, max_depth=9, chunk=2048)
+    prov = ProviderModel.aws_lambda()
+    path = HARNESS_DIR / "trace_replay.jsonl"
+    store = TraceStore(ring_size=4096, path=str(path))
+    ewma_trace = TraceStore(ring_size=4096,
+                            path=str(HARNESS_DIR / "trace_replay_ewma.jsonl"))
+    try:
+        def record():
+            with make_pool("sim", max_concurrency=512, provider=prov,
+                           trace=store) as pool:
+                return run_irregular(pool, uts_spec(p, device=dev),
+                                     shape=TaskShape(32, 16))
+        rec, _ = chaos_path(paths, "trace_replay recorded (sim)",
+                            "uts_expand", record)
+        paths["trace_replay recorded (sim)"]["tasks"] = rec.tasks
+        events_total = len(store)
+        resident = store.resident_events
+
+        def replays():
+            wl = extract_workload(store, provider=prov)
+            same = replay(wl, provider=prov, max_concurrency=512)
+            gcf = replay(wl, provider=ProviderModel.gcf(),
+                         max_concurrency=512)
+            ewma = replay(wl, provider=prov, max_concurrency=512,
+                          autoscale=AutoscalePolicy(
+                              min_capacity=32, max_capacity=512,
+                              ewma_alpha=0.5, grow_cooldown_s=0.05,
+                              shrink_cooldown_s=0.05),
+                          trace=ewma_trace)
+            return wl, same, gcf, ewma
+        (wl, r_same, r_gcf, r_ewma), replay_s = silent_path(
+            paths, "trace_replay extract and three replays", replays)
+        parity_pct = 100 * abs(r_same.makespan_s - rec.makespan_s) \
+            / rec.makespan_s
+        arts = render_concurrency_figure(
+            {"recorded": store, "replay-ewma": ewma_trace},
+            str(HARNESS_DIR / "fig4_trace_replay"))
+    finally:
+        store.close()
+        ewma_trace.close()
+    ascii_fig = Path(arts["txt"]).read_text()
+
+    true = ProviderModel.aws_lambda(
+        cold_start_s=0.4, warm_overhead_s=0.02, burst_concurrency=5,
+        scaling_ramp_per_min=120.0)
+
+    def fit_run():
+        with make_pool("sim", max_concurrency=1000, provider=true) as cp:
+            for f in [cp.submit(lambda: 0,
+                                cost_hint=1000 + (i * 7919) % 49000)
+                      for i in range(300)]:
+                f.result()
+            return calibrate(cp.events, name="fitted-aws")
+    fit, _ = silent_path(paths, "trace_replay calibrate (sim)", fit_run)
+    fit_ok = (abs(fit.cold_start_s - true.cold_start_s)
+              <= 0.25 * true.cold_start_s
+              and abs(fit.warm_overhead_s - true.warm_overhead_s)
+              <= 0.25 * true.warm_overhead_s
+              and abs(fit.scaling_ramp_per_min - true.scaling_ramp_per_min)
+              <= 0.30 * true.scaling_ramp_per_min)
+    if not (events_total >= 100_000 and resident <= 4096
+            and r_same.tasks == rec.tasks == wl.n_tasks):
+        raise AssertionError(f"trace_replay: {events_total} events, "
+                             f"{resident} resident, {rec.tasks} tasks "
+                             f"recorded, {r_same.tasks} replayed")
+    row = {"nodes": rec.output, "tasks": rec.tasks,
+           "events_total": events_total, "resident_events": resident,
+           "recorded_vt_s": round(rec.makespan_s, 3),
+           "recorded_usd": round(rec.cost.total, 6),
+           "recorded_cold_starts": rec.cold_starts,
+           "replay_same_vt_s": round(r_same.makespan_s, 3),
+           "replay_parity_pct": round(parity_pct, 3),
+           "replay_gcf_vt_s": round(r_gcf.makespan_s, 3),
+           "replay_gcf_usd": round(r_gcf.cost.total, 6),
+           "gcf_slowdown_pct": round(
+               100 * (r_gcf.makespan_s / rec.makespan_s - 1), 1),
+           "replay_ewma_vt_s": round(r_ewma.makespan_s, 3),
+           "replay_ewma_usd": round(r_ewma.cost.total, 6),
+           "ewma_resizes": len(r_ewma.autoscale_decisions),
+           "fitted_cold_s": round(fit.cold_start_s, 4),
+           "fitted_warm_ms": round(fit.warm_overhead_s * 1e3, 3),
+           "fitted_ramp_per_min": round(fit.scaling_ramp_per_min, 1),
+           "fit_within_tolerance": fit_ok,
+           "figure_png": "png" in arts,
+           "bounded_memory": resident <= 4096 < events_total}
+    check_row("trace_record_replay", row, TRACE_REPLAY_ROW)
+    path.unlink(missing_ok=True)
+    (HARNESS_DIR / "trace_replay_ewma.jsonl").unlink(missing_ok=True)
+    return {"row": row, "replay_s": replay_s,
+            "virtual_s": {"recorded": rec.makespan_s,
+                          "same": r_same.makespan_s,
+                          "gcf": r_gcf.makespan_s,
+                          "ewma": r_ewma.makespan_s},
+            "artifacts": sorted(arts), "fig4_ascii": ascii_fig}
+
+
+def scaled_controller():
+    """The Listing-5 controller, its thresholds rescaled to a 16-worker
+    pool (the reference benchmark's ``_scaled_controller``)."""
+    from repro_torch.core import StagedController, TaskShape
+    from repro_torch.core.adaptive import Stage
+    return StagedController(initial=TaskShape(32, 500), stages=[
+        Stage(8, "above", TaskShape(8, 4000)),
+        Stage(13, "above", TaskShape(2, 8000)),
+        Stage(11, "below", TaskShape(2, 4000)),
+        Stage(2, "below", TaskShape(2, 1500))])
+
+
+def fig7_9_row(dev, paths: dict, depth: int) -> dict:
+    """Figs. 7-9's cost-performance row on the card at UTS seed 19, b0 4,
+    ``depth``: the elastic pool at shape (4, 1000), the elastic pool under
+    the Listing-5 controller from (32, 500), and a 2-thread local pool
+    (the VM) at (4, 4000), all bodies on the card from worker threads.
+    Times are the card machine's wall clock; dollars are the cost model's
+    bill of those times."""
+    from repro_torch.algorithms import UTSParams, uts_sequential, uts_spec
+    from repro_torch.core import (TaskShape, VMPrice, emr_cluster_cost,
+                                  make_pool, price_performance,
+                                  run_irregular, serverless_cost, vm_cost)
+
+    p = UTSParams(seed=19, b0=4.0, max_depth=depth)
+    want = uts_sequential(p, device=dev)
+    if want != UTS_DEEP_NODES[depth]:
+        raise AssertionError(f"fig7_9: uts_sequential counts {want} nodes "
+                             f"at depth {depth}, not {UTS_DEEP_NODES[depth]}")
+
+    def elastic(shape, **kw):
+        def go():
+            with make_pool("elastic", max_concurrency=16,
+                           invoke_overhead=0.001,
+                           invoke_rate_limit=None) as ex:
+                t0 = time.monotonic()
+                r = run_irregular(ex, uts_spec(p, device=dev), shape=shape,
+                                  **kw)
+                wall = time.monotonic() - t0
+                return r, wall, serverless_cost(ex.records,
+                                                wall_time_s=wall)
+        return go
+
+    def vm():
+        with make_pool("local", max_concurrency=2, invoke_overhead=0.0) as ex:
+            t0 = time.monotonic()
+            r = run_irregular(ex, uts_spec(p, device=dev),
+                              shape=TaskShape(4, 4000))
+            return r, time.monotonic() - t0
+    runs = {}
+    for label, fn in (("static", elastic(TaskShape(4, 1000))),
+                      ("dynamic", elastic(TaskShape(32, 500),
+                                          controller=scaled_controller())),
+                      ("vm", vm)):
+        name = f"fig7_9 {label} UTS depth {depth}"
+        runs[label], _ = chaos_path(paths, name, "uts_expand", fn)
+        paths[name]["tasks"] = runs[label][0].tasks
+    (r_st, wall_st, cost_st), (r_dy, wall_dy, cost_dy), (r_vm, wall_vm) = \
+        runs["static"], runs["dynamic"], runs["vm"]
+    counts = [r_st.output, r_dy.output, r_vm.output]
+    if counts != [want] * 3:
+        raise AssertionError(f"fig7_9: counts {counts}, uts_sequential "
+                             f"{want}")
+    cost_vm = vm_cost(wall_vm, VMPrice.named("c5.24xlarge"))
+    cost_emr = emr_cluster_cost(wall_vm, workers=2)
+    nodes = r_st.output
+
+    def ppr(wall, cost):
+        return price_performance(nodes / wall / 1e6, cost)
+    row = {"nodes": nodes, "depth": depth,
+           "serverless_static_s": wall_st, "serverless_dynamic_s": wall_dy,
+           "vm_s": wall_vm,
+           "tasks": {"static": r_st.tasks, "dynamic": r_dy.tasks,
+                     "vm": r_vm.tasks},
+           "controller_transitions": len(r_dy.controller_transitions),
+           "dyn_vs_static_time_pct": 100 * (1 - wall_dy / wall_st),
+           "dyn_extra_cost_pct": 100 * (cost_dy.total
+                                        / max(cost_st.total, 1e-12) - 1),
+           "usd": {"static": cost_st.total, "dynamic": cost_dy.total,
+                   "vm": cost_vm.total, "emr": cost_emr.total},
+           "ppr_static": ppr(wall_st, cost_st),
+           "ppr_dynamic": ppr(wall_dy, cost_dy),
+           "ppr_vm": ppr(wall_vm, cost_vm),
+           "ppr_emr": ppr(wall_vm, cost_emr),
+           "paper_spark_pct": PAPER_SPARK_PCT,
+           "paper_dynamic_pct": PAPER_DYNAMIC_PCT}
+    row["serverless_over_emr_pct"] = 100 * (
+        max(row["ppr_static"], row["ppr_dynamic"]) / row["ppr_emr"] - 1)
+    return row
+
+
+def open_loop_serving(dev, paths: dict) -> dict:
+    """``serve`` open loop at full width on the card (``OPEN_LOOP``): every
+    request it submits must be answered; the timeline it spills to
+    ``build/harness`` must replay to one root task a request.  Each decode
+    step's wall time is read around ``TorchEngine.decode`` (it ends in a
+    device-to-host copy, so the step has finished on the card)."""
+    from repro_torch.launch.serve import TorchEngine, serve
+    from repro_torch.trace import extract_workload, read_trace
+
+    path = HARNESS_DIR / "serve_open_loop.jsonl"
+    path.unlink(missing_ok=True)
+    steps: list = []
+    decode = TorchEngine.decode
+
+    def timed(self, n_active):
+        t0 = time.perf_counter()
+        decode(self, n_active)
+        steps.append(time.perf_counter() - t0)
+    TorchEngine.decode = timed
+    try:
+        name = f"serve open loop {ARCH} (rate {OPEN_LOOP['rate']})"
+        rep, wall, _ = run_path(name, "flash_attention_fwd", lambda: serve(
+            ARCH, trace=str(path), device=dev, **OPEN_LOOP), required=False)
+    finally:
+        TorchEngine.decode = decode
+    from repro_torch.kernels import launches
+    paths[name] = {"seconds": wall, "launches": {
+        "flash_attention_fwd": launches("flash_attention_fwd")}}
+    if not rep["submitted"] or rep["requests"] != rep["submitted"]:
+        raise AssertionError(f"open-loop serve: {rep['requests']} answered "
+                             f"of {rep['submitted']} submitted")
+    wl = extract_workload(read_trace(str(path)))
+    if not len(wl.roots) == wl.n_tasks == rep["requests"] or wl.n_lost:
+        raise AssertionError(f"open-loop serve trace: {len(wl.roots)} roots, "
+                             f"{wl.n_tasks} tasks, {wl.n_lost} lost for "
+                             f"{rep['requests']} requests")
+    out = {k: rep[k] for k in ("submitted", "requests", "rounds", "wall_s",
+                               "tokens", "tok_per_s", "ttft_p50",
+                               "ttft_p99", "peak_slots",
+                               "engine_decode_steps")}
+    out.update(decode_steps=len(steps),
+               decode_step_median_ms=1e3 * statistics.median(steps),
+               trace_bytes=path.stat().st_size, trace_roots=len(wl.roots),
+               open_loop=dict(OPEN_LOOP))
+    path.unlink()
+    return out
+
+
+def serving_knee_row() -> dict:
+    """``serving_knee`` through the port's ``traffic`` and ``trace`` at the
+    row's shapes: a two-tenant stream (poisson chat, MMPP bursts, 60 s,
+    seed 19) swept over 1-16x its rate on an 8-wide static pool; the SLO
+    autoscaler against a static pool sized at its peak; the static knee
+    run recorded and replayed open-loop.  Host only."""
+    from repro_torch.core import ProviderModel
+    from repro_torch.trace import TraceStore, extract_workload, replay
+    from repro_torch.traffic import (ArrivalModel, EngineModel, LengthModel,
+                                     ResidencyConfig, SLOAutoscalePolicy,
+                                     TenantSpec, generate_stream, scale_rate,
+                                     serve_open_loop)
+    base = [
+        TenantSpec("chat", ArrivalModel(kind="poisson", rate=2.0),
+                   prompt_len=LengthModel(mean=100.0, sigma=0.9, lo=8,
+                                          hi=1024),
+                   decode_len=LengthModel(mean=48.0, sigma=0.7, lo=4,
+                                          hi=512)),
+        TenantSpec("burst", ArrivalModel(kind="mmpp", rate=0.5,
+                                         burst_rate=6.0, calm_s=10.0,
+                                         burst_s=3.0),
+                   prompt_len=LengthModel(kind="pareto", mean=160.0,
+                                          alpha=1.4, lo=8, hi=2048),
+                   decode_len=LengthModel(mean=32.0, sigma=0.8, lo=4,
+                                          hi=256)),
+    ]
+    engine = EngineModel(prefill_s_per_token=5e-4, decode_s_per_token=5e-3)
+    prov = ProviderModel.aws_lambda()
+    rescfg = ResidencyConfig(memory_capacity_mb=48 * prov.memory_mb,
+                             max_per_tenant=32)
+    horizon, seed, static_cap = 60.0, 19, 8
+
+    def run(factor, **kw):
+        stream = generate_stream(scale_rate(base, factor), horizon_s=horizon,
+                                 seed=seed)
+        return serve_open_loop(stream, engine=engine, provider=prov,
+                               residency_cfg=rescfg, **kw)
+
+    factors = (1, 2, 4, 8, 16)
+    sweep = {f: run(f, capacity=static_cap) for f in factors}
+    derived = {}
+    for f, r in sweep.items():
+        derived[f"x{f}_p99_ms"] = round(r.ttft_p99_s * 1e3, 2)
+        derived[f"x{f}_loss_pct"] = round(100 * r.loss_rate, 2)
+    base_p99 = sweep[factors[0]].ttft_p99_s
+    knee = next((f for f in factors if sweep[f].ttft_p99_s > 2 * base_p99),
+                factors[-1])
+    knee_visible = sweep[factors[-1]].ttft_p99_s > 3 * base_p99
+    deterministic = (run(knee, capacity=static_cap).as_dict()
+                     == sweep[knee].as_dict())
+    target = 2.0
+    slo_trace = TraceStore(ring_size=4096,
+                           path=str(HARNESS_DIR / "knee_slo.jsonl"))
+    rep_trace = TraceStore(ring_size=4096,
+                           path=str(HARNESS_DIR / "knee_static.jsonl"))
+    try:
+        slo = run(knee, capacity=2, trace=slo_trace,
+                  autoscale=SLOAutoscalePolicy(
+                      min_capacity=2, max_capacity=256,
+                      target_p99_ttft_s=target, headroom=0.5,
+                      grow_cooldown_s=0.25, shrink_cooldown_s=2.0))
+        static_peak = run(knee, capacity=max(slo.peak_capacity, 3))
+        recorded = run(knee, capacity=static_cap, trace=rep_trace)
+        wl = extract_workload(rep_trace)
+        if not wl.open_loop:
+            raise AssertionError("serving_knee: the serving trace carries no "
+                                 "arrival offsets")
+        replayed = replay(wl, max_concurrency=static_cap,
+                          invoke_overhead=0.0)
+    finally:
+        slo_trace.close()
+        rep_trace.close()
+    parity_pct = 100 * abs(replayed.makespan_s - recorded.makespan_s) \
+        / recorded.makespan_s
+    cost_parity_pct = 100 * abs(replayed.cost.total
+                                - recorded.serverless_usd) \
+        / max(recorded.serverless_usd, 1e-12)
+    slo_cheaper = (slo.provisioned_usd < static_peak.provisioned_usd
+                   and slo.cost_per_token_usd
+                   < static_peak.cost_per_token_usd)
+    return dict(
+        derived, knee_factor=knee, knee_rate_rps=round(2.5 * knee, 2),
+        knee_p50_ms=round(sweep[knee].ttft_p50_s * 1e3, 2),
+        knee_p99_ms=round(sweep[knee].ttft_p99_s * 1e3, 2),
+        knee_loss_pct=round(100 * sweep[knee].loss_rate, 2),
+        knee_cost_per_mtok_usd=round(sweep[knee].cost_per_token_usd * 1e6,
+                                     4),
+        slo_target_ms=round(target * 1e3, 1),
+        slo_p99_ms=round(slo.ttft_p99_s * 1e3, 2),
+        static_peak_p99_ms=round(static_peak.ttft_p99_s * 1e3, 2),
+        slo_peak_capacity=slo.peak_capacity, slo_resizes=slo.resizes,
+        slo_provisioned_usd=round(slo.provisioned_usd, 6),
+        static_provisioned_usd=round(static_peak.provisioned_usd, 6),
+        slo_cost_per_mtok_usd=round(slo.cost_per_token_usd * 1e6, 4),
+        static_cost_per_mtok_usd=round(
+            static_peak.cost_per_token_usd * 1e6, 4),
+        slo_savings_pct=round(100 * (1 - slo.provisioned_usd / max(
+            static_peak.provisioned_usd, 1e-12)), 1),
+        replay_parity_pct=round(parity_pct, 3),
+        cost_parity_pct=round(cost_parity_pct, 3),
+        knee_visible=knee_visible, deterministic=deterministic,
+        static_knee_violates_target=sweep[knee].ttft_p99_s > target,
+        slo_holds_target=slo.ttft_p99_s <= target,
+        slo_cheaper_than_static=slo_cheaper,
+        replay_parity_ok=parity_pct <= 1.0 and cost_parity_pct <= 1.0)
+
+
+def dag_pipeline_row() -> dict:
+    """``dag_pipeline`` through the port's ``dag``: the three DAG families
+    on a 32-wide sim pool, plain and fused, and on a 4-thread local pool;
+    the sink values must agree.  Host only."""
+    from repro_torch.core import make_pool, run_irregular
+    from repro_torch.dag import (hyperparam_sweep_dag,
+                                 iterative_mapreduce_dag, montage_dag)
+    derived, identical = {}, True
+    for key, mk, kw in (("montage", montage_dag, {"tiles": 32}),
+                        ("sweep", hyperparam_sweep_dag,
+                         {"configs": 16, "stages": 4}),
+                        ("iter_mr", iterative_mapreduce_dag,
+                         {"rounds": 5, "initial_width": 12})):
+        with make_pool("sim", max_concurrency=32) as pool:
+            plain = run_irregular(pool, mk(**kw))
+        with make_pool("sim", max_concurrency=32) as pool:
+            fused = run_irregular(pool, mk(**kw), batching=True)
+        with make_pool("local", max_concurrency=4) as pool:
+            wall = run_irregular(pool, mk(**kw))
+        identical = identical and plain.output == fused.output == wall.output
+        derived[f"{key}_nodes"] = plain.dag_nodes
+        derived[f"{key}_critical_path"] = plain.critical_path_len
+        derived[f"{key}_max_stage_width"] = max(plain.stage_widths)
+        derived[f"{key}_vt_s"] = round(plain.makespan_s, 4)
+        derived[f"{key}_vt_fused_s"] = round(fused.makespan_s, 4)
+    derived["dag_identical_outputs"] = bool(identical)
+    return derived
+
+
+def faas_parallelism_row() -> dict:
+    """``faas_parallelism`` through the port's ``dag.probe``: bursts up to
+    512 wide against four provider presets, and ``fit_provider``
+    recovering a known preset from a constant-width probe.  Host only."""
+    import dataclasses
+    from repro_torch.core import ProviderModel, make_pool
+    from repro_torch.dag import run_parallelism_probe
+    derived, monotone = {}, True
+    for preset in ("aws_lambda", "gcf", "azure_functions", "prewarmed"):
+        with make_pool("sim", max_concurrency=2048,
+                       provider=getattr(ProviderModel, preset)()) as pool:
+            prof = run_parallelism_probe(pool, max_width=512)
+        monotone = monotone and prof.envelope_monotone()
+        last = prof.bursts[-1]
+        derived[f"{preset}_achieved_at_512"] = last.achieved
+        derived[f"{preset}_ramp_latency_s"] = round(last.ramp_latency_s, 3)
+        derived[f"{preset}_cold_share"] = round(last.cold_start_share, 3)
+    derived["probe_envelope_monotone"] = bool(monotone)
+    known = dataclasses.replace(ProviderModel.gcf(), name="probe-target",
+                                burst_concurrency=8,
+                                scaling_ramp_per_min=240.0, cold_start_s=0.3)
+    with make_pool("sim", max_concurrency=1024, provider=known) as pool:
+        prof = run_parallelism_probe(pool, max_width=256, start=256,
+                                     repeats_at_max=10)
+    fitted = prof.fit(base=known)
+    derived["fit_burst"] = fitted.burst_concurrency
+    derived["fit_ramp_per_min"] = round(fitted.scaling_ramp_per_min, 1)
+    derived["fit_cold_s"] = round(fitted.cold_start_s, 4)
+    derived["probe_fit_recovers"] = bool(
+        abs(fitted.burst_concurrency - 8) <= 2
+        and abs(fitted.scaling_ramp_per_min - 240.0) / 240.0 < 0.25
+        and abs(fitted.cold_start_s - 0.3) / 0.3 < 0.25)
+    return derived
+
+
+def run_examples(dev, paths: dict) -> dict:
+    """The three example twins through their ``main`` at their default
+    sizes (UTS depth 10, Mariani-Silver 256² at dwell 96, BC R-MAT scale 8
+    over 16 tasks), their printing sent to stderr; each asserts its own
+    oracle, and each must launch its kernels."""
+    import contextlib
+    from repro_torch.examples import (betweenness_centrality,
+                                      mandelbrot_render, quickstart)
+    npy = HARNESS_DIR / "mandelbrot_dwell.npy"
+    out = {}
+    for name, kernel, fn in (
+            ("quickstart", "uts_expand", lambda: quickstart.main(dev)),
+            ("mandelbrot_render", "mandelbrot",
+             lambda: mandelbrot_render.main(dev, out=str(npy))),
+            ("betweenness_centrality", "bc_forward_level",
+             lambda: betweenness_centrality.main(dev))):
+        with contextlib.redirect_stdout(sys.stderr):
+            res, wall = chaos_path(paths, f"example {name}", kernel, fn)
+        res.pop("centrality", None)
+        out[name] = {"seconds": wall, **res}
+    npy.unlink(missing_ok=True)
+    return out
+
+
+def phase_harness(dev) -> dict:
+    """Record, replay and calibrate; Figs. 7-9; open-loop serving; the
+    traffic sim and the host-only rows; the three examples (phase 9 of the
+    module docstring)."""
+    from repro_torch.launch.serve import serve_traffic_sim
+    t_phase = time.monotonic()
+    HARNESS_DIR.mkdir(parents=True, exist_ok=True)
+    paths: dict = {}
+    out: dict = {"paths": paths}
+
+    # 1: record -> replay -> calibrate
+    t0 = time.monotonic()
+    out["trace_record_replay"] = rec = trace_replay_row(dev, paths)
+    rec["seconds"] = time.monotonic() - t0
+    row = rec["row"]
+    log("[harness] trace_record_replay on the card equals the JAX "
+        "package's row: " + ", ".join(f"{k} {row[k]}"
+                                      for k in TRACE_REPLAY_ROW)
+        + f"; the three replays launched nothing ({rec['replay_s']:.3f} s); "
+        f"{rec['seconds']:.1f} s")
+
+    # 2: Figs. 7-9 at the paper's Table 1 row
+    t0 = time.monotonic()
+    out["fig7_9"] = row = fig7_9_row(dev, paths, FIG7_9_DEPTH)
+    row["seconds"] = time.monotonic() - t0
+    log(f"[harness] Figs. 7-9 at UTS depth {FIG7_9_DEPTH}: {row['nodes']} "
+        f"nodes on each pool; wall static {row['serverless_static_s']:.3f} "
+        f"s, dynamic {row['serverless_dynamic_s']:.3f} s, VM "
+        f"{row['vm_s']:.3f} s; dynamic vs static "
+        f"{row['dyn_vs_static_time_pct']:.1f} % time at "
+        f"{row['dyn_extra_cost_pct']:+.2f} % cost (paper: "
+        f"{PAPER_DYNAMIC_PCT} %); price-performance static "
+        f"{row['ppr_static']:.0f}, dynamic {row['ppr_dynamic']:.0f}, VM "
+        f"{row['ppr_vm']:.0f}, EMR {row['ppr_emr']:.0f} M nodes/s/$ "
+        f"(serverless over EMR {row['serverless_over_emr_pct']:+.0f} %; "
+        f"paper: UTS beats Spark by up to {PAPER_SPARK_PCT} %); "
+        f"{row['seconds']:.1f} s")
+
+    # 3: open-loop serving at full width, then the traffic sim
+    t0 = time.monotonic()
+    out["serve_open_loop"] = srv = open_loop_serving(dev, paths)
+    srv["seconds"] = time.monotonic() - t0
+    log(f"[harness] serve {ARCH} open loop at {OPEN_LOOP['rate']} req/s "
+        f"({OPEN_LOOP['n_tenants']} tenants, {OPEN_LOOP['arrival']}): "
+        f"{srv['requests']} of {srv['submitted']} answered, "
+        f"{srv['tok_per_s']:.1f} tok/s, TTFT p50 {srv['ttft_p50']:.4f} s, "
+        f"p99 {srv['ttft_p99']:.4f} s, decode step median "
+        f"{srv['decode_step_median_ms']:.2f} ms over {srv['decode_steps']}; "
+        f"its spilled trace ({srv['trace_bytes']} bytes) replays to "
+        f"{srv['trace_roots']} root tasks")
+    sim, _ = silent_path(paths, "serve_traffic_sim",
+                         lambda: serve_traffic_sim(**SERVE_SIM_ARGS))
+    check_row("serve_traffic_sim", sim, SERVE_SIM_ROW)
+    out["serve_traffic_sim"] = sim
+    log(f"[harness] serve_traffic_sim equals the JAX package's: "
+        f"{sim['requests']} requests, TTFT p99 {sim['ttft_p99_s']} s, "
+        f"makespan {sim['makespan_s']} virtual s, "
+        f"${sim['provisioned_usd']} provisioned")
+
+    # 4: the host-only rows
+    for label, fn, want in (("serving_knee", serving_knee_row,
+                             SERVING_KNEE_ROW),
+                            ("dag_pipeline", dag_pipeline_row,
+                             DAG_PIPELINE_ROW),
+                            ("faas_parallelism", faas_parallelism_row,
+                             FAAS_PARALLELISM_ROW)):
+        got, wall = silent_path(paths, label, fn)
+        check_row(label, got, want)
+        out[label] = dict(got, seconds=wall)
+        log(f"[harness] {label} equals the JAX package's row "
+            f"({len(want)} values, {wall:.3f} s)")
+
+    # 5: the example twins
+    out["examples"] = ex = run_examples(dev, paths)
+    log("[harness] examples: " + ", ".join(
+        f"{k} {v['seconds']:.2f} s" for k, v in ex.items())
+        + f"; quickstart {ex['quickstart']['nodes']} nodes, BC max abs "
+        f"error {ex['betweenness_centrality']['max_abs_err']:.2e}")
+    out["seconds"] = time.monotonic() - t_phase
+    log(f"[harness] phase {out['seconds']:.1f} s")
     return out
 
 
@@ -3164,6 +3849,7 @@ def main() -> int:
     paper = phase_ms_paper_size(dev)
     bc = phase_bc(dev)
     chaos = phase_chaos(dev, uts)
+    harness = phase_harness(dev)
     model = phase_model(dev)
     # run_path has already required a launch on every path that runs a
     # hand kernel
@@ -3189,10 +3875,6 @@ def main() -> int:
                      f"{bc_task['edges']} edges; state [{bc_task['vertices']}"
                      f", {bc_task['sources']}]; a task's {k['levels']} "
                      f"levels summed"}
-    # the chaos phase's paths, each with the launches of the kernels it runs
-    for path, rec in chaos["paths"].items():
-        for name, n in rec["launches"].items():
-            kernels[name]["launches_by_path"][path] = n
     # the flash line is measured on the prefill's own operands: a global
     # (causal, S = 32,768) layer, with the local (window 512) one beside it
     glob, loc = (model["main_path_operands"][k] for k in ("global", "local"))
@@ -3208,6 +3890,12 @@ def main() -> int:
         "local_layer": {k: loc[k] for k in (
             "shape", "window", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "max_abs_err", "launches")}}
+    # the chaos and harness phases' paths, each with the launches of the
+    # kernels it runs (a harness path that runs no kernel records none)
+    for phase in (chaos, harness):
+        for path, rec in phase["paths"].items():
+            for name, n in rec["launches"].items():
+                kernels[name]["launches_by_path"][path] = n
 
     summary = [{"name": name, "route": "cuda",
                 "source": KERNEL_SOURCES[name][0],
@@ -3229,7 +3917,7 @@ def main() -> int:
               "kernels": kernels,
               "flash_fixed_shapes": flash_fixed, "uts": uts, "ms": ms,
               "ms_paper_size": paper, "bc": bc, "chaos": chaos,
-              "model": model}
+              "harness": harness, "model": model}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"[done] {report['seconds']:.1f} s; report in "

@@ -1,6 +1,6 @@
 """The port's ``repro_torch.chaos`` on the CPU: a twin of each test of
 ``tests/test_chaos.py`` (fault injection, WAL crash recovery, routing
-policies; the trace-replay one waits for ``trace/replay.py``), then the
+policies, and a cancel round trip through a trace and its replay), then the
 WAL across the two packages: a journal written by either package resumes
 in the other (UTS and MS bit for bit, BC within the reference's test
 tolerances), and both packages journal the same folds in the same order."""
@@ -33,7 +33,8 @@ from repro_torch.core.provider import Backoff
 from repro_torch.core.telemetry import (CANCEL, CHECKPOINT, FOLDED, REQUEUE,
                                         THROTTLED, WORKER_KILLED, Event,
                                         EventLog, VirtualClock)
-from repro_torch.trace import TraceStore, event_from_dict, event_to_dict
+from repro_torch.trace import (TraceStore, event_from_dict, event_to_dict,
+                               extract_workload)
 
 UTS = dict(seed=2, b0=3.0, max_depth=6)
 MS = dict(width=64, height=64, max_dwell=32, max_depth=3,
@@ -296,6 +297,19 @@ def test_gather_fail_fast_cancels_remainder():
         with pytest.raises(RuntimeError):
             f.result(timeout=30)
         assert pool.events.counts().get(CANCEL, 0) > 0
+
+
+def test_cancel_round_trips_through_trace_and_replay():
+    store = TraceStore(ring_size=32)
+    with make_pool("local", max_concurrency=2, invoke_overhead=0.0,
+                   max_attempts=1, trace=store) as pool:
+        with pytest.raises(RuntimeError):
+            pool.map(_boom, range(12))
+        wl = extract_workload(store)
+    # cancelled tasks are counted distinctly, not as in-flight losses
+    assert wl.n_cancelled > 0
+    assert wl.n_lost == 0
+    store.close()
 
 
 def test_new_event_kinds_serialize():

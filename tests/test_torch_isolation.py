@@ -1,7 +1,8 @@
 """The port stands alone: it runs its main paths (UTS, Mariani-Silver,
-betweenness centrality, a master killed and resumed from its journal, and
-the model's prefill, decode and serving loop) without importing jax or
-any module of the reference package, no
+betweenness centrality, a master killed and resumed from its journal, a
+recorded run replayed and calibrated, open-loop traffic, a DAG, the
+examples, and the model's prefill, decode and serving loop) with jax and
+the reference package unimportable, no
 source file of it (nor ``chip_smoke.py``) imports either, and
 ``device=None`` never falls back to the CPU."""
 import json
@@ -29,6 +30,17 @@ def _one_torch_thread():
 
 _PROBE = r"""
 import json, sys
+
+
+class _Unimportable:
+    # jax and the reference package cannot be imported in this probe
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ModuleNotFoundError(f"No module named {name!r}")
+        return None
+
+
+sys.meta_path.insert(0, _Unimportable())
 import numpy as np
 from repro_torch.algorithms import (MSParams, RMATParams, UTSParams,
                                     bc_single_node, bc_spec, ms_spec,
@@ -79,12 +91,37 @@ step, _ = decode_step(cfg, params, arena, {"tokens": toks[:, -1:]},
                       torch.tensor([12]))
 rep = serve("gemma3-1b", smoke=True, n_requests=3, n_slots=2, max_seq=32,
             device="cpu")
+import repro_torch.trace.replay, repro_torch.trace.calibrate
+from repro_torch.core import ProviderModel
+from repro_torch.dag import montage_dag
+from repro_torch.examples import betweenness_centrality, quickstart
+import repro_torch.examples.mandelbrot_render
+from repro_torch.launch.serve import serve_traffic_sim
+from repro_torch.trace import TraceStore, extract_workload, fit_provider, replay
+from repro_torch.traffic import generate_stream
+store = TraceStore(ring_size=64)
+with make_pool("sim", max_concurrency=8, provider=ProviderModel.aws_lambda(),
+               trace=store) as pool:
+    rec = run_irregular(pool, uts_spec(UTSParams(max_depth=5), device="cpu"),
+                        shape=shape)
+rep_same = replay(extract_workload(store, provider=ProviderModel.aws_lambda()),
+                  provider=ProviderModel.aws_lambda(), max_concurrency=8)
+fitted = fit_provider(store)
+store.close()
+with make_pool("sim", max_concurrency=8) as pool:
+    dag = run_irregular(pool, montage_dag(tiles=8))
+sim = serve_traffic_sim(rate=2.0, horizon_s=10.0)
+qs = quickstart.main("cpu", max_depth=5)
+bc_ex = betweenness_centrality.main("cpu", scale=5, n_tasks=2)
 print(json.dumps({
     "uts": n, "uts_pool": r.output, "ms_equal": same,
     "uts_resumed": resumed.output, "recovered": resumed.recovered_tasks,
     "bc_equal": bc_same, "bc_tasks": b.tasks,
     "prefill": list(logits.shape), "decode": list(step.shape),
     "served": rep["requests"],
+    "replayed": [rec.tasks, rep_same.tasks], "fitted": fitted.name,
+    "dag_nodes": dag.dag_nodes, "sim_completed": sim["completed"],
+    "quickstart": qs["nodes"], "bc_example_tasks": bc_ex["tasks"],
     "jax": sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")),
     "repro": sorted(k for k in sys.modules
                     if k == "repro" or k.startswith("repro.")),
@@ -105,6 +142,10 @@ def test_main_path_runs_without_jax_or_repro():
     assert res["bc_equal"] and res["bc_tasks"] == 4
     assert res["prefill"] == res["decode"] == [1, 256]
     assert res["served"] == 3
+    assert res["replayed"][0] == res["replayed"][1] > 0
+    assert res["fitted"] == "fitted" and res["dag_nodes"] == 17
+    assert res["sim_completed"] > 0
+    assert res["quickstart"] == 416 and res["bc_example_tasks"] == 2
     assert res["jax"] == []
     assert res["repro"] == []
 

@@ -134,16 +134,43 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    global and one local layer's own operands again through kernel and
    plain version (both checks); 32 ``decode_step`` tokens on from that
    cache padded to an arena of 32,768 + 32; ``prefill`` at S = 4096 with the kernel and with the
-   plain version forced, and prefill(4096) + one decode step against
-   prefill(4097), on the same weights; a warm prefill and four decode
+   plain version forced, one decode step on each one's cache, and
+   prefill(4096) + one decode step against prefill(4097), on the same
+   weights (``compare_model``); a warm prefill and four decode
    steps under ``torch.profiler`` (device busy time, largest kernels, the
    device's idle share); then ``serve`` (16 requests, 4 slots, max_seq
    256) through the ElasticBatcher, which must answer all;
-11. one JSON line with every kernel's launches on each main path, error,
-   times and bound, then the last line ``{"ok": true, "device": ...}``.
+11. the other model families (``phase_model_families``), random bf16
+   weights from seed 0 drawn on the card leaf by leaf: deepseek-moe-16b
+   at full width and depth (28 layers, 64 experts, top-6, 2 shared) with
+   the same prefill of 32,768 tokens (28 flash launches), 32 decode steps,
+   the kernel on a layer's own operands, a profiled prefill and four
+   decode steps, and ``serve`` with 16 requests; deepseek-v3-671b at full
+   width cut to 2 layers (one dense MLA layer, one MoE MLA layer, the MTP
+   head initialised; listed as ``reduced``), a 4,096-token prefill whose
+   MLA attention goes through the kernel zero-padded from q.k 192 and v
+   128 to 256 (its bound taken on the unpadded work), 8 absorbed-form
+   decode steps; chatglm3-6b, starcoder2-15b, musicgen-medium and
+   llava-next-mistral-7b at full width cut to 2 layers, a 4,096-token
+   prefill (``embeds`` for the two frontend stubs) and 4 decode steps.
+   Each model is held whole, kernel against plain version at S = 4096,
+   within phase 10's gate, with one decode step on each version's cache;
+   prefill(4096) + one decode step against prefill(4097) is held where
+   none of the last token's MoE pairs was dropped at capacity (it is the
+   first dropped), and the count is printed either way, with the pairs
+   dropped per MoE layer and the routing decisions that differ between
+   the kernel's and the plain version's prefill (a bf16 near-tie may
+   flip; the gate stays the logits');
+12. every process the run started is stopped and waited for (the
+   resource tracker of the BC oracle's spawn pool, which would outlive
+   the script, and any other left over, listed in the report), then one
+   JSON line with every kernel's launches on each main path, error,
+   times and bound, and the last line ``{"ok": true, "device": ...}``.
+   A failing run stops its processes too.
 
-Each of the eleven main-path runs (three UTS, two Mariani-Silver, three BC,
-prefill, decode, serve), and each run of phases 8 and 9 on the card, is
+Each of the main-path runs (three UTS, two Mariani-Silver, three BC,
+prefill, decode, serve, and each family's prefill and decode and the MoE
+serve), and each run of phases 8 and 9 on the card, is
 driven with the launch counts set to 0 just before it and read just after
 it, and fails unless its kernel launched (BC: both level kernels); phase
 9's replays, fit and host-only rows must launch none.  Decode and
@@ -172,7 +199,9 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -268,6 +297,84 @@ KERNEL_SOURCES = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _descendants(pid: int) -> list:
+    """The live processes under ``pid`` (children first), from ``/proc``."""
+    parent = {}
+    for d in Path("/proc").iterdir():
+        if d.name.isdigit():
+            try:
+                stat = (d / "stat").read_text()
+            except OSError:
+                continue
+            parent[int(d.name)] = int(stat.rsplit(")", 1)[1].split()[1])
+    found, todo = [], [pid]
+    while todo:
+        kids = [c for c, pp in parent.items() if pp == todo[0]]
+        found += kids
+        todo = todo[1:] + kids
+    return found
+
+
+def _state(pid: int) -> str:
+    try:
+        return Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[0]
+    except OSError:
+        return "?"
+
+
+def _cmdline(pid: int) -> str:
+    try:
+        raw = Path(f"/proc/{pid}/cmdline").read_bytes()
+    except OSError:
+        return "?"
+    return raw.replace(b"\0", b" ").decode(errors="replace").strip()
+
+
+def stop_resource_tracker() -> None:
+    """Stops the multiprocessing resource tracker, which a spawn pool
+    starts and which otherwise lives until this interpreter exits (and a
+    moment past it, holding stderr open)."""
+    from multiprocessing import resource_tracker
+    tracker = getattr(resource_tracker, "_resource_tracker", None)
+    if tracker is not None and hasattr(tracker, "_stop"):
+        tracker._stop()
+
+
+def stop_children() -> list:
+    """Stops every process this script started that is still running:
+    the resource tracker first, then any other descendant, by SIGTERM and,
+    after 5 s, SIGKILL; each is waited for.  Returns the command lines of
+    the processes it had to signal (the smoke starts none that should be
+    left: ``nvcc``, ``nvidia-smi`` and ``cuobjdump`` are waited for, the
+    BC oracle's workers joined)."""
+    stop_resource_tracker()
+    left = _descendants(os.getpid())
+    stopped = [f"{pid}: {_cmdline(pid)}" for pid in left
+               if _state(pid) != "Z"]   # an exited child is only reaped
+    for sig, grace in ((signal.SIGTERM, 5.0), (signal.SIGKILL, 5.0)):
+        for pid in left:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        t_end = time.monotonic() + grace
+        while left and time.monotonic() < t_end:
+            for pid in list(left):
+                try:
+                    done, _ = os.waitpid(pid, os.WNOHANG)
+                except ChildProcessError:   # not ours to wait for
+                    done = pid if not Path(f"/proc/{pid}").exists() else 0
+                if done:
+                    left.remove(pid)
+            time.sleep(0.05)
+        if not left:
+            break
+    if stopped:
+        print(f"chip_smoke: stopped {len(stopped)} leftover process(es): "
+              + "; ".join(stopped), file=sys.stderr, flush=True)
+    return stopped
 
 
 def cuda_time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -1761,6 +1868,7 @@ def phase_bc(dev) -> dict:
         oracle = [f.result() for f in futures]
     finally:
         pool.shutdown(cancel_futures=True)
+        stop_resource_tracker()
     oracle_s = time.monotonic() - t0
 
     # -- the gates that do not trust the port --------------------------------
@@ -3103,6 +3211,8 @@ def serving_knee_row() -> dict:
     deterministic = (run(knee, capacity=static_cap).as_dict()
                      == sweep[knee].as_dict())
     target = 2.0
+    # the tests call this row alone, before any phase has made the folder
+    HARNESS_DIR.mkdir(parents=True, exist_ok=True)
     slo_trace = TraceStore(ring_size=4096,
                            path=str(HARNESS_DIR / "knee_slo.jsonl"))
     rep_trace = TraceStore(ring_size=4096,
@@ -3382,20 +3492,20 @@ def _product_s(flops: float, dtype) -> float:
 
 
 def flash_bound(q2, k2, v2, causal: bool, window) -> tuple:
-    """Least card time for one flash call: the live pairs' products (2 * D
-    flops each for q.k^T in q's and k's type, 2 * D for p.v in v's type,
+    """Least card time for one flash call: the live pairs' products (2 * Dk
+    flops each for q.k^T in q's and k's type, 2 * Dv for p.v in v's type,
     each at ``_product_s``'s rate, the two added), against q, k, v read and
-    o written once."""
-    bhg, sq, d = q2.shape
-    skv = k2.shape[1]
-    pair_flops = bhg * live_pairs(sq, skv, causal, window) * 2 * d
-    t_ops = (_product_s(pair_flops, q2.dtype) +
-             _product_s(pair_flops, v2.dtype)) * 1e3
-    n_bytes = (2 * q2.numel() + k2.numel()) * q2.element_size() + \
-        v2.numel() * v2.element_size()
+    o ([BHG, Sq, Dv], q's type) written once."""
+    bhg, sq, dk = q2.shape
+    skv, dv = v2.shape[1:]
+    pairs = bhg * live_pairs(sq, skv, causal, window)
+    t_ops = (_product_s(pairs * 2 * dk, q2.dtype) +
+             _product_s(pairs * 2 * dv, v2.dtype)) * 1e3
+    n_bytes = (q2.numel() + k2.numel() + bhg * sq * dv) * \
+        q2.element_size() + v2.numel() * v2.element_size()
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations", 2 * pair_flops)
+            "operations", pairs * 2 * (dk + dv))
 
 
 def sdpa(q2, k2, v2, causal: bool, window):
@@ -3407,7 +3517,7 @@ def sdpa(q2, k2, v2, causal: bool, window):
     bhg, sq, d = q2.shape
     bhkv, skv, _ = k2.shape
     q4 = q2.view(bhkv, bhg // bhkv, sq, d)
-    k4, v4 = k2.view(bhkv, 1, skv, d), v2.view(bhkv, 1, skv, d)
+    k4, v4 = k2.view(bhkv, 1, skv, d), v2.view(bhkv, 1, skv, v2.shape[-1])
     if window is None:
         return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
                                               scale=1.0, enable_gqa=True)
@@ -3612,6 +3722,33 @@ def device_busy(fn, label: str) -> dict:
     return rec
 
 
+def profile_model(cfg, params, batch: dict, step, arena_len: int,
+                  label: str) -> dict:
+    """Where the time goes: the prefill of ``batch`` again, warm (the
+    path's run includes first-call costs), timed, then under the profiler;
+    and four decode steps, ``step(t)`` for the arena's last four positions
+    t, under the profiler."""
+    import torch
+    from repro_torch.models import prefill
+    s = next(iter(batch.values())).shape[1]
+    t1 = time.monotonic()
+    prefill(cfg, params, batch)
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t1
+    log(f"[model] {label} prefill S={s} again, warm: {warm_s:.3f} s, "
+        f"{s / warm_s:.1f} tokens/s")
+    prof = {"prefill": device_busy(lambda: prefill(cfg, params, batch),
+                                   f"{label} prefill S={s}")}
+    prof["prefill"]["warm_wall_ms"] = warm_s * 1e3
+
+    def four_steps():
+        for t in range(arena_len - 4, arena_len):
+            step(t)
+
+    prof["decode"] = device_busy(four_steps, f"{label} decode, 4 steps")
+    return prof
+
+
 def phase_model(dev) -> dict:
     """gemma3-1b at full width on the card: prefill of S = 32,768 through
     the flash kernel (launches counted, one global and one local layer's
@@ -3702,27 +3839,12 @@ def phase_model(dev) -> dict:
             f"{statistics.median(step_s) * 1e3:.3f} ms, first "
             f"{step_s[0] * 1e3:.3f} ms, {n_dec} flash_attention_fwd "
             f"launches (the decode product is plain PyTorch)")
-        # where the time goes: the prefill again, warm (the path's run
-        # includes first-call costs), timed, then under the profiler; and
-        # four decode steps (rewriting the arena's last four rows) under
-        # the profiler
-        t1 = time.monotonic()
-        prefill(cfg, params, {"tokens": toks[:, :PREFILL_S]})
-        torch.cuda.synchronize()
-        warm_s = time.monotonic() - t1
-        log(f"[model] prefill S={PREFILL_S} again, warm: {warm_s:.3f} s, "
-            f"{PREFILL_S / warm_s:.1f} tokens/s")
-        prof = {"prefill": device_busy(
-            lambda: prefill(cfg, params, {"tokens": toks[:, :PREFILL_S]}),
-            f"prefill S={PREFILL_S}")}
-
-        def four_steps():
-            for t in range(arena_len - 4, arena_len):
-                decode_step(cfg, params, arena, {"tokens": nxt},
-                            torch.tensor([t], device=dev))
-
-        prof["decode"] = device_busy(four_steps, "decode, 4 steps")
-        prof["prefill"]["warm_wall_ms"] = warm_s * 1e3
+        # four decode steps rewrite the arena's last four rows
+        prof = profile_model(cfg, params, {"tokens": toks[:, :PREFILL_S]},
+                             lambda t: decode_step(
+                                 cfg, params, arena, {"tokens": nxt},
+                                 torch.tensor([t], device=dev)),
+                             arena_len, cfg.name)
         del arena, logits
 
         # -- whole model, kernel against plain version ------------------
@@ -3761,40 +3883,442 @@ def phase_model(dev) -> dict:
             "launches": {"prefill": n_pre, "decode": n_dec, "serve": n_srv}}
 
 
-def compare_model(cfg, params, toks, dev) -> dict:
-    """Last-position logits of ``prefill`` at S = 4096 with the kernel and
-    with the plain version forced (same weights), and of prefill(S) plus
-    one decode step against prefill(S + 1): the whole model, right at full
-    width."""
+# -- the other families: MoE, MLA, the dense and frontend configs ------------
+
+#: deepseek-moe-16b at full width and depth: the model path's prefill
+#: (prefill_32k, batch cut to 1) and decode, and closed-loop serving
+MOE_ARCH = "deepseek-moe-16b"
+#: deepseek-v3-671b at full width, depth cut from 61 layers to one dense
+#: MLA layer and one MoE MLA layer (the MTP head initialised)
+MLA_ARCH = "deepseek-v3-671b"
+MLA_PREFILL_S, MLA_DECODE_STEPS = 4096, 8
+#: the capacity factor of the reference's consistency test, at which
+#: compare_model holds decode against prefill where the config's own
+#: capacity drops the last token's pairs
+WIDE_CAPACITY = 16.0
+#: the dense and frontend configs at full width, each cut to 2 layers
+DENSE_FAMILIES = ("chatglm3-6b", "starcoder2-15b", "musicgen-medium",
+                  "llava-next-mistral-7b")
+DENSE_LAYERS, DENSE_PREFILL_S, DENSE_DECODE_STEPS = 2, 4096, 4
+
+
+def family_inputs(cfg, n: int, dev, seed: int):
+    """[1, n] token ids, or for a frontend stub [1, n, d_model] bf16
+    embeddings, from ``seed``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if cfg.frontend is None:
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).to(dev)
+    return torch.from_numpy(rng.standard_normal(
+        (1, n, cfg.d_model), np.float32)).to(dev, torch.bfloat16)
+
+
+def family_paths(dev, cfg, prefill_s: int, decode_steps: int,
+                 paths: dict) -> dict:
+    """One config on the card: random bf16 weights from seed 0 (drawn on
+    the device leaf by leaf in float32, then cast); the prefill path
+    (every layer launches the flash kernel once; finite logits; peak memory
+    and the MoE pairs dropped per layer); ``decode_steps`` decode steps on
+    from its cache, fed the seeded inputs.  Records each path's flash
+    launches in ``paths``; returns the record with the weights, the
+    inputs, the decode arena and the flash operand tap for the caller."""
+    import torch
+    from repro_torch.models import decode_step, init_params, prefill
+    name = cfg.name
+    t0 = time.monotonic()
+    params = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    log(f"[families] {name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params} parameters (bf16; {cfg.param_count()} by the config's "
+        f"count, which leaves out any MTP head), random weights from seed 0 "
+        f"in {init_s:.3f} s")
+    inputs = family_inputs(cfg, max(prefill_s + decode_steps,
+                                    MODEL_CMP_S + 1), dev, seed=7)
+    torch.cuda.reset_peak_memory_stats()
+    with OperandTap("flash_attention_fwd", k=1) as tap, MoETap() as moe:
+        (logits, cache), pre_s, n_pre = run_path(
+            f"{name} prefill", "flash_attention_fwd",
+            lambda: prefill(cfg, params, model_batch(cfg, inputs, 0,
+                                                     prefill_s)))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if n_pre != cfg.n_layers:
+        raise AssertionError(f"{name} prefill: {n_pre} flash_attention_fwd "
+                             f"launches, want {cfg.n_layers}")
+    if logits.shape != (1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name} prefill logits {tuple(logits.shape)} "
+                             f"not finite")
+    dropped = moe.dropped()
+    log(f"[families] {name} prefill S={prefill_s} batch 1: {pre_s:.3f} s, "
+        f"{prefill_s / pre_s:.1f} tokens/s, {n_pre} flash_attention_fwd "
+        f"launches, peak memory {peak_gb:.2f} GB"
+        + (f"; pairs dropped at capacity per MoE layer {dropped} "
+           f"({sum(dropped)} of {len(dropped) * prefill_s * cfg.moe.top_k})"
+           if cfg.moe is not None else ""))
+    del moe
+    arena = padded_cache(cache, prefill_s + decode_steps)
+    del cache
+
+    def decode_all():
+        times = []
+        for t in range(decode_steps):
+            t1 = time.monotonic()
+            lg, _ = decode_step(cfg, params, arena, model_batch(
+                cfg, inputs, prefill_s + t, prefill_s + t + 1),
+                torch.tensor([prefill_s + t], device=dev))
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t1)
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"{name} decode step {t}: logits not "
+                                     f"finite")
+        return times
+
+    step_s, dec_s, n_dec = run_path(f"{name} decode", "flash_attention_fwd",
+                                    decode_all, required=False)
+    log(f"[families] {name} decode {decode_steps} steps on from the "
+        f"{prefill_s} prefill: median step {statistics.median(step_s) * 1e3:.3f}"
+        f" ms, first {step_s[0] * 1e3:.3f} ms, {n_dec} flash_attention_fwd "
+        f"launches (the decode product is plain PyTorch)")
+    paths[f"{name} prefill"] = n_pre
+    paths[f"{name} decode"] = n_dec
+    rec = {"n_params": n_params, "param_count": cfg.param_count(),
+           "init_params_s": init_s,
+           "prefill": {"seq": prefill_s, "batch": 1, "seconds": pre_s,
+                       "tokens_per_s": prefill_s / pre_s,
+                       "peak_memory_gb": peak_gb, "launches": n_pre,
+                       "moe_dropped_pairs": dropped},
+           "decode": {"steps": decode_steps, "seconds": dec_s,
+                      "step_ms": [t * 1e3 for t in step_s],
+                      "median_step_ms": statistics.median(step_s) * 1e3,
+                      "launches": n_dec}}
+    return {"rec": rec, "params": params, "inputs": inputs, "arena": arena,
+            "tap": tap}
+
+
+def tapped_flash(tap, label: str, unpadded=None) -> dict:
+    """The kernel against its plain version on the one set of operands the
+    prefill's tap kept (all layers of these configs share a shape), timed.
+    ``unpadded`` = (Dk, Dv) where the operands were zero-padded for the
+    kernel (MLA): the bound is then taken on the unpadded work and SDPA,
+    which takes Dk != Dv, timed on the unpadded operands, with the padded
+    shape's bound beside them."""
+    import torch
+    ((shapes, static), kept), = tap.samples.items()
+    st = dict(static)
+    (q2, k2, v2), _ = kept[0]
+    rec = check_flash(q2, k2, v2, causal=st["causal"], window=st["window"],
+                      softcap=st["softcap"], reps=3, label=label)
+    rec["launches"] = tap.seen[(shapes, static)]
+    if unpadded is not None:
+        dk, dv = unpadded
+        uq, uk = (t[..., :dk].contiguous() for t in (q2, k2))
+        uv = v2[..., :dv].float().contiguous()
+        b_ms, b_by, flops = flash_bound(uq, uk, v2[..., :dv], st["causal"],
+                                        st["window"])
+        rec.update(padded_bound_ms=rec["bound_ms"], bound_ms=b_ms,
+                   bound_by=b_by, flops=flops, unpadded=f"q.k {dk}, v {dv}")
+        rec["library_ms"] = cuda_time_ms(
+            lambda: sdpa(uq.float(), uk.float(), uv, st["causal"],
+                         st["window"]), reps=3)
+        log(f"[flash] {label}: unpadded (q.k {dk}, v {dv}) bound "
+            f"{b_ms:.4f} ms ({b_by}), padded shape's bound "
+            f"{rec['padded_bound_ms']:.4f} ms; SDPA on the unpadded operands "
+            f"(float32) {rec['library_ms']:.4f} ms")
+        del uq, uk, uv
+    del q2, k2, v2, kept
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_model_families(dev) -> dict:
+    """deepseek-moe-16b at full width and depth (prefill of 32,768 tokens,
+    32 decode steps, the kernel on the prefill's own operands, a profiled
+    prefill and decode, the whole model with kernel and plain version at
+    S = 4096, and closed-loop serving), deepseek-v3-671b at full width cut
+    to 2 layers (MLA through the flash kernel zero-padded; the absorbed
+    decode), and the dense and frontend configs at full width cut to 2
+    layers, each against the plain version."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Stage, decode_step
+    t_phase = time.monotonic()
+    paths: dict = {}
+    out: dict = {"launches": paths}
+
+    # -- deepseek-moe-16b, full width and depth --------------------------
+    cfg = get_config(MOE_ARCH)
+    with torch.inference_mode():
+        run = family_paths(dev, cfg, PREFILL_S, DECODE_STEPS, paths)
+        params, inputs, arena = run["params"], run["inputs"], run["arena"]
+        rec = run["rec"]
+        rec["flash_global_layer"] = tapped_flash(
+            run.pop("tap"), f"{MOE_ARCH} prefill layer operands")
+        rec["profile"] = profile_model(
+            cfg, params, model_batch(cfg, inputs, 0, PREFILL_S),
+            lambda t: decode_step(cfg, params, arena, model_batch(
+                cfg, inputs, t, t + 1), torch.tensor([t], device=dev)),
+            PREFILL_S + DECODE_STEPS, MOE_ARCH)
+        del arena, run
+        rec["whole_model"] = compare_model(
+            cfg, params, inputs[:, :MODEL_CMP_S + 1], dev)
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del params, inputs
+    torch.cuda.empty_cache()
+    rep, serve_s, n_srv = run_path(
+        f"{MOE_ARCH} serve", "flash_attention_fwd",
+        lambda: serve(MOE_ARCH, smoke=False, seed=0, device=dev, **SERVE),
+        required=False)
+    if rep["requests"] != SERVE["n_requests"]:
+        raise AssertionError(f"{MOE_ARCH} serve answered {rep['requests']} "
+                             f"of {SERVE['n_requests']} requests")
+    paths[f"{MOE_ARCH} serve"] = n_srv
+    log(f"[serve] {MOE_ARCH} full width, {SERVE}: {rep['requests']} "
+        f"requests, {rep['tokens']} tokens, {rep['engine_decode_steps']} "
+        f"decode steps, {rep['wall_s']:.3f} s in the batcher, "
+        f"{rep['tok_per_s']:.1f} tok/s, p50 TTFT {rep['ttft_p50']:.3f} s, "
+        f"{n_srv} flash_attention_fwd launches")
+    rec["serve"] = {k: rep[k] for k in (
+        "requests", "tokens", "rounds", "wall_s", "tok_per_s", "ttft_p50",
+        "ttft_p99", "engine_decode_steps")} | {"seconds": serve_s,
+                                               "launches": n_srv, **SERVE}
+    out[MOE_ARCH] = rec
+    torch.cuda.empty_cache()
+
+    # -- deepseek-v3-671b, full width, 2 layers ---------------------------
+    full = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(full, stages=tuple(
+        Stage(1, st.pattern) for st in full.stages))
+    with torch.inference_mode():
+        run = family_paths(dev, cfg, MLA_PREFILL_S, MLA_DECODE_STEPS, paths)
+        rec = run["rec"]
+        if "mtp" not in run["params"]:
+            raise AssertionError(f"{MLA_ARCH}: no MTP head initialised")
+        rec["mtp_params"] = sum(t.numel() for _, t in
+                                _leaves(run["params"]["mtp"]))
+        rec["flash_mla_layer"] = tapped_flash(
+            run.pop("tap"), f"{MLA_ARCH} prefill MLA layer operands "
+            f"(zero-padded)", unpadded=(cfg.mla.qk_head_dim,
+                                        cfg.mla.v_head_dim))
+        del run["arena"]
+        rec["whole_model"] = compare_model(
+            cfg, run["params"], run["inputs"][:, :MODEL_CMP_S + 1], dev)
+        del run
+    rec["reduced"] = {"n_layers": [full.n_layers, cfg.n_layers],
+                      "stages": "one dense MLA layer, one MoE MLA layer "
+                                "(from 3 and 58)"}
+    out[MLA_ARCH] = rec
+    torch.cuda.empty_cache()
+
+    # -- the dense and frontend configs, full width, 2 layers ---------------
+    for arch in DENSE_FAMILIES:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, stages=(
+            Stage(DENSE_LAYERS, full.stages[0].pattern),))
+        with torch.inference_mode():
+            run = family_paths(dev, cfg, DENSE_PREFILL_S, DENSE_DECODE_STEPS,
+                               paths)
+            rec = run["rec"]
+            del run["arena"], run["tap"]
+            rec["whole_model"] = compare_model(
+                cfg, run["params"], run["inputs"][:, :MODEL_CMP_S + 1], dev)
+            del run
+        rec["reduced"] = {"n_layers": [full.n_layers, cfg.n_layers]}
+        out[arch] = rec
+        torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t_phase
+    log(f"[families] phase: {out['seconds']:.1f} s")
+    return out
+
+
+def close_logits(a, b, what: str) -> dict:
+    """Two logits tensors under the whole-model gate: max |a - b| within
+    MODEL_REL_TOL of b's largest |logit|, cosine at least MODEL_MIN_COS."""
+    gap = logits_gap(a, b)
+    rel, cos = gap["rel_err"], gap["cosine"]
+    same = bool((a.argmax(-1) == b.argmax(-1)).all())
+    log(f"[model] {what}: max |d logit| / max |logit| {rel:.3e} "
+        f"(allowed {MODEL_REL_TOL:.3e}), cosine {cos:.6f} (allowed "
+        f">= {MODEL_MIN_COS}), same argmax {same}")
+    if not (rel <= MODEL_REL_TOL and cos >= MODEL_MIN_COS):
+        raise AssertionError(f"{what}: logits disagree beyond tolerance")
+    return gap | {"same_argmax": same}
+
+
+def model_batch(cfg, inputs, a: int, b: int) -> dict:
+    """Positions [a, b) of ``inputs`` as the model's batch: token ids, or
+    a frontend stub's embeddings."""
+    return {"tokens" if cfg.frontend is None else "embeds": inputs[:, a:b]}
+
+
+def compare_model(cfg, params, inputs, dev) -> dict:
+    """The whole model, right at full width, on ``inputs[:, :S + 1]``:
+    last-position logits of ``prefill(S)`` with the kernel and with the
+    plain version forced (same weights); one decode step on each of their
+    caches; and prefill(S) plus one decode step against prefill(S + 1),
+    all under the gate of ``close_logits``.
+
+    MoE routing is discrete, and at full depth with random weights it
+    amplifies rounding: a token's top-k expert set flips on a near-tie,
+    and a flip moves an expert's capacity boundary for every later token.
+    So in each pair the second run replays the first run's routing
+    (``MoETap(replay=...)``: the same experts for each token and layer,
+    weighted by its own router probabilities), which leaves the kernel's
+    rounding as the only difference; the routing decisions that differ
+    when the plain version routes for itself are counted and its logits'
+    distance reported beside the gate.  The last token of prefill(S + 1)
+    is the first dropped where an expert overflows, so that check is
+    made only where none of its pairs was dropped (prefill(S) and the
+    decode step then replay prefill(S + 1)'s routing of their tokens);
+    the count is reported either way; where it was, the check is made
+    again at capacity factor ``WIDE_CAPACITY``, on the same weights.
+    Without MoE layers the taps do nothing."""
+    import dataclasses
     import torch
     from repro_torch.models import decode_step, prefill
 
-    s = toks.shape[1] - 1
-
-    def close(a, b, what):
-        a, b = a.float(), b.float()
-        rel = float((a - b).abs().max() / b.abs().max())
-        cos = float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
-        same = bool((a.argmax(-1) == b.argmax(-1)).all())
-        log(f"[model] {what}: max |d logit| / max |logit| {rel:.3e} "
-            f"(allowed {MODEL_REL_TOL:.3e}), cosine {cos:.6f} (allowed "
-            f">= {MODEL_MIN_COS}), same argmax {same}")
-        if not (rel <= MODEL_REL_TOL and cos >= MODEL_MIN_COS):
-            raise AssertionError(f"{what}: logits disagree beyond tolerance")
-        return {"rel_err": rel, "cosine": cos, "same_argmax": same}
-
-    lk, cache = prefill(cfg, params, {"tokens": toks[:, :s]})
-    lr, _ = prefill(cfg, params, {"tokens": toks[:, :s]}, backend="ref")
-    out = {"seq": s, "kernel_vs_plain": close(lk, lr, f"prefill S={s}, "
-                                              f"kernel vs plain version")}
-    arena = padded_cache(cache, s + 1)
-    ld, _ = decode_step(cfg, params, arena, {"tokens": toks[:, s:s + 1]},
-                        torch.tensor([s], device=dev))
-    lf, _ = prefill(cfg, params, {"tokens": toks})
-    out["decode_vs_prefill"] = close(ld, lf, f"prefill {s} + decode 1 vs "
-                                             f"prefill {s + 1}")
+    s = inputs.shape[1] - 1
+    pos = torch.tensor([s], device=dev)
+    head, step = model_batch(cfg, inputs, 0, s), model_batch(
+        cfg, inputs, s, s + 1)
+    with MoETap() as rk:
+        lk, cache = prefill(cfg, params, head)
+    with MoETap(replay=rk):
+        lr, cache_r = prefill(cfg, params, head, backend="ref")
+    out = {"seq": s, "kernel_vs_plain": close_logits(
+        lk, lr, f"prefill S={s}, kernel vs plain version")}
+    if cfg.moe is not None:
+        with MoETap() as rfree:
+            lfree, _ = prefill(cfg, params, head, backend="ref")
+        free = out["free_routing"] = rk.flips(rfree) | logits_gap(lk, lfree)
+        log(f"[model] routing, kernel vs plain prefill routing for itself: "
+            f"{free['flipped']} of {free['decisions']} (layer, token) "
+            f"expert sets differ; logits max |d| / max |logit| "
+            f"{free['rel_err']:.3e}, cosine {free['cosine']:.6f} (reported; "
+            f"the gate is held with the routing replayed)")
+        del lfree, rfree
+    with MoETap() as dk:
+        ld, _ = decode_step(cfg, params, padded_cache(cache, s + 1), step, pos)
+    with MoETap(replay=dk):
+        ldr, _ = decode_step(cfg, params, padded_cache(cache_r, s + 1), step,
+                             pos)
+    del cache, cache_r
+    out["decode_kernel_vs_plain"] = close_logits(
+        ld, ldr, f"decode 1 on the prefill {s} caches, kernel vs plain")
+    # at the config's capacity, else (MoE) at WIDE_CAPACITY, where
+    # fewer pairs overflow (none in deepseek-moe-16b: an expert takes at
+    # most one pair a token)
+    out["last_token_dropped_pairs"] = {}
+    out["decode_vs_prefill"] = {"skipped": True}
+    for run_cfg in (cfg,) if cfg.moe is None else (cfg, dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe,
+                                         capacity_factor=WIDE_CAPACITY))):
+        cf = None if cfg.moe is None else run_cfg.moe.capacity_factor
+        what = f"prefill {s} + decode 1 vs prefill {s + 1}" + (
+            f", capacity factor {cf}" if cf else "")
+        with MoETap() as rf:
+            lf, _ = prefill(run_cfg, params,
+                            model_batch(cfg, inputs, 0, s + 1))
+        last = out["last_token_dropped_pairs"][str(cf)] = \
+            rf.last_token_dropped()
+        if last:
+            log(f"[model] {what}: not held, {last} of the last token's "
+                f"pairs dropped at capacity in prefill {s + 1}")
+            continue
+        with MoETap(replay=rf):
+            _, cache = prefill(run_cfg, params, head)
+        with MoETap(replay=rf, offset=s):
+            ld, _ = decode_step(run_cfg, params, padded_cache(cache, s + 1),
+                                step, pos)
+        del cache
+        out["decode_vs_prefill"] = close_logits(ld, lf, what) | {
+            "capacity_factor": cf}
+        break
     out.update(rel_tol=MODEL_REL_TOL, min_cos=MODEL_MIN_COS)
     return out
+
+
+def logits_gap(a, b) -> dict:
+    """max |a - b| over b's largest |logit|, and the least cosine."""
+    import torch
+    a, b = a.float(), b.float()
+    return {"rel_err": float((a - b).abs().max() / b.abs().max()),
+            "cosine": float(torch.nn.functional.cosine_similarity(
+                a, b, dim=-1).min())}
+
+
+class MoETap:
+    """While open, records the routing of every MoE block run: each
+    token's experts and the capacity, in layer order, so the pair counts
+    per expert and the pairs dropped (the block's own counts are the
+    experts' histogram, n_shards 1).  With ``replay`` (another tap, read
+    after its run), each block routes instead to the experts that tap
+    recorded for its layer, from token ``offset`` on, weighted by this
+    run's own renormalised router probabilities.  It wraps ``_route`` in
+    ``repro_torch.models.moe``; nothing syncs until it is read."""
+
+    def __init__(self, replay: "MoETap | None" = None,
+                 offset: int = 0) -> None:
+        self.replay, self.offset = replay, offset
+        self.layers: list = []
+
+    def __enter__(self) -> "MoETap":
+        import repro_torch.models.moe as moe
+        self.module, self.route = moe, moe._route
+        moe._route = self._route
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.module._route = self.route
+
+    def _route(self, router_w, x, cfg):
+        import torch
+        from repro_torch.models.moe import expert_capacity
+        t = x.shape[0]
+        if self.replay is None:
+            top_w, top_e, aux = self.route(router_w, x, cfg)
+        else:
+            top_e = self.replay.layers[len(self.layers)]["experts"][
+                self.offset:self.offset + t]
+            probs = torch.softmax(x.float() @ router_w, dim=-1)
+            top_w = probs.gather(1, top_e)
+            top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+            f = torch.bincount(top_e.reshape(-1), minlength=cfg.n_experts)
+            aux = cfg.n_experts * torch.sum(f / top_e.numel()
+                                            * probs.mean(dim=0))
+        self.layers.append({"experts": top_e, "n_experts": cfg.n_experts,
+                            "capacity": expert_capacity(t, cfg)})
+        return top_w, top_e, aux
+
+    @staticmethod
+    def _counts(r):
+        import torch
+        return torch.bincount(r["experts"].reshape(-1),
+                              minlength=r["n_experts"])
+
+    def dropped(self) -> list:
+        """Pairs dropped at capacity, per MoE layer in order."""
+        return [int((self._counts(r) - r["capacity"]).clamp_min(0).sum())
+                for r in self.layers]
+
+    def last_token_dropped(self) -> int:
+        """The last token's pairs dropped: it comes last in every expert's
+        stable order, so its pair to expert e is dropped iff e's count
+        exceeds the capacity."""
+        return sum(int((self._counts(r)[r["experts"][-1]] > r["capacity"])
+                       .sum()) for r in self.layers)
+
+    def flips(self, other: "MoETap") -> dict:
+        """(layer, token) expert sets that differ from ``other``'s run."""
+        flipped = sum(int((a["experts"].sort(-1).values
+                           != b["experts"].sort(-1).values).any(-1).sum())
+                      for a, b in zip(self.layers, other.layers))
+        return {"flipped": flipped, "decisions": sum(
+            r["experts"].shape[0] for r in self.layers)}
 
 
 def padded_cache(tree, length: int):
@@ -3851,6 +4375,7 @@ def main() -> int:
     chaos = phase_chaos(dev, uts)
     harness = phase_harness(dev)
     model = phase_model(dev)
+    families = phase_model_families(dev)
     # run_path has already required a launch on every path that runs a
     # hand kernel
     kernels["uts_expand"]["launches_by_path"] = uts["launches"]
@@ -3890,6 +4415,20 @@ def main() -> int:
         "local_layer": {k: loc[k] for k in (
             "shape", "window", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "max_abs_err", "launches")}}
+    # and on the other families' prefill operands: deepseek-moe-16b's
+    # global layer at 32k, and deepseek-v3's MLA layer, zero-padded (its
+    # bound on the unpadded work)
+    flash = kernels["flash_attention_fwd"]
+    flash["launches_by_path"].update(families["launches"])
+    for key, rec in (("moe_layer", families[MOE_ARCH]["flash_global_layer"]),
+                     ("mla_layer", families[MLA_ARCH]["flash_mla_layer"])):
+        flash[key] = {k: rec[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "launches") + (
+            ("unpadded", "padded_bound_ms") if "unpadded" in rec else ())}
+        flash["max_abs_err"] = max(flash["max_abs_err"], rec["max_abs_err"])
+        flash["max_abs_err_float32"] = max(flash["max_abs_err_float32"],
+                                           rec["float32"]["max_abs_err"])
     # the chaos and harness phases' paths, each with the launches of the
     # kernels it runs (a harness path that runs no kernel records none)
     for phase in (chaos, harness):
@@ -3906,18 +4445,22 @@ def main() -> int:
                 "matched": k["matched"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
-               | {x: k[x] for x in ("local_layer", "full_iteration_ms",
+               | {x: k[x] for x in ("local_layer", "moe_layer", "mla_layer",
+                                    "full_iteration_ms",
                                     "bound_dwell_sum_ms", "in_set_main_path",
                                     "bound_loose_ms", "levels",
                                     "ms_per_level")
                   if x in k}
                for name, k in kernels.items()]
+    # nothing the run started may outlive it
+    leftover = stop_children()
     report = {"card": card, "device": torch.cuda.get_device_name(0),
               "seconds": time.monotonic() - t_start, "build": build,
               "kernels": kernels,
               "flash_fixed_shapes": flash_fixed, "uts": uts, "ms": ms,
               "ms_paper_size": paper, "bc": bc, "chaos": chaos,
-              "harness": harness, "model": model}
+              "harness": harness, "model": model, "families": families,
+              "leftover_processes_stopped": leftover}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"[done] {report['seconds']:.1f} s; report in "
@@ -3931,4 +4474,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_children()
+    sys.exit(rc)

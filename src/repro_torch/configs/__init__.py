@@ -18,14 +18,14 @@ from .shapes import SHAPES, ShapeSpec, cell_applicable
 _MODULES: Dict[str, "str | None"] = {
     "gemma3-1b": "gemma3_1b",
     "glm4-9b": "glm4_9b",
-    "chatglm3-6b": None,
-    "starcoder2-15b": None,
-    "deepseek-moe-16b": None,
-    "deepseek-v3-671b": None,
-    "musicgen-medium": None,
+    "chatglm3-6b": "chatglm3_6b",
+    "starcoder2-15b": "starcoder2_15b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "musicgen-medium": "musicgen_medium",
     "rwkv6-1.6b": None,
     "jamba-v0.1-52b": None,
-    "llava-next-mistral-7b": None,
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

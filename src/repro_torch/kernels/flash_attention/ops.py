@@ -6,7 +6,11 @@ whole sequences; the kernel masks its own ragged edge), whose CUDA body
 launches the hand-written kernel ``csrc/flash_attention.cu`` and whose
 reference body is the plain PyTorch version of ``ref.py``.
 :func:`flash_attention_fused` moves the model's [B, S, Hkv, G, D] layout
-to the kernel's [BHG, S, D] batch of heads and back.
+to the kernel's [BHG, S, D] batch of heads and back.  Where q.k and v have
+head dims the kernel is not built for (MLA: 192 and 128), it zero-pads all
+three to the next one it is (256) and cuts the output back to v's: zeros
+add nothing to a dot product, so this is exact, and it costs the padded
+shape's time (a kernel instantiation for Dk != Dv is later work).
 
 ``flash_attention_fused`` keeps the reference's ``q_chunk`` and
 ``kv_chunk`` arguments for its callers, and drops them: they sized the
@@ -21,13 +25,14 @@ import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from ..dispatch import KernelOp, dispatch, record_launch, register_kernel
 from .ref import flash_attention_ref
 
 __all__ = ["flash_attention_fused", "flash_attention_ref",
-           "flash_attention_cuda", "kernel_tiles"]
+           "flash_attention_cuda", "kernel_tiles", "padded_head_dim"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: (q and k, v) dtype pairs the kernel is built for; a bf16 model feeds the
@@ -138,6 +143,16 @@ register_kernel(KernelOp(
 ))
 
 
+def padded_head_dim(dk: int, dv: int) -> int:
+    """The head dim q, k and v go to the kernel at: their own where they
+    agree and the kernel is built for it, else the next dim it is built
+    for (MLA's q.k 192 and v 128 -> 256), else unchanged (the CUDA wrapper
+    then refuses it; the plain version takes any)."""
+    if dk == dv and dk in _HEAD_DIMS:
+        return dk
+    return next((d for d in _HEAD_DIMS if d >= max(dk, dv)), max(dk, dv))
+
+
 def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: Optional[int] = None,
@@ -146,14 +161,19 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           backend: Optional[str] = None) -> torch.Tensor:
     """q: [B, Sq, Hkv, G, Dk] (pre-scaled); k/v: [B, Skv, Hkv, D*].
     Returns [B, Sq, Hkv, G, Dv].  ``backend``: "cuda", "ref", or None =
-    from the operands' device."""
+    from the operands' device.  Head dims the kernel is not built for are
+    zero-padded to :func:`padded_head_dim` on either backend."""
     del q_chunk, kv_chunk  # no result depends on them (module docstring)
     b, sq, hkv, g, dk = q.shape
     skv = k.shape[1]
     dv = v.shape[-1]
-    q2 = q.permute(0, 2, 3, 1, 4).reshape(b * hkv * g, sq, dk).contiguous()
-    k2 = k.permute(0, 2, 1, 3).reshape(b * hkv, skv, dk).contiguous()
-    v2 = v.permute(0, 2, 1, 3).reshape(b * hkv, skv, dv).contiguous()
+    d = padded_head_dim(dk, dv)
+    q2 = q.permute(0, 2, 3, 1, 4).reshape(b * hkv * g, sq, dk)
+    k2 = k.permute(0, 2, 1, 3).reshape(b * hkv, skv, dk)
+    v2 = v.permute(0, 2, 1, 3).reshape(b * hkv, skv, dv)
+    # zero columns add nothing to q.k and give output columns that are cut
+    q2, k2, v2 = ((F.pad(t, (0, d - t.shape[-1])) if t.shape[-1] < d
+                   else t).contiguous() for t in (q2, k2, v2))
     out = dispatch("flash_attention_fwd", q2, k2, v2, backend=backend,
                    causal=causal, window=window, softcap=softcap)
-    return out.reshape(b, hkv, g, sq, dv).permute(0, 3, 1, 2, 4)
+    return out[..., :dv].reshape(b, hkv, g, sq, dv).permute(0, 3, 1, 2, 4)

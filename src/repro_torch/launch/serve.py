@@ -79,12 +79,19 @@ class TorchEngine:
         self.prefill_tokens += tokens
 
     def decode(self, n_active: int) -> None:
-        tokens = torch.from_numpy(self.tokens).to(self.device, torch.long)
+        if self.cfg.frontend is None:
+            batch = {"tokens": torch.from_numpy(self.tokens).to(
+                self.device, torch.long)}
+        else:
+            # a frontend stub's step input: zero embeddings, as the
+            # reference's engine feeds
+            batch = {"embeds": torch.zeros(
+                (self.n_slots, 1, self.cfg.d_model), dtype=torch.bfloat16,
+                device=self.device)}
         pos = torch.from_numpy(self.pos).to(self.device, torch.long)
         with torch.inference_mode():
             logits, self.cache = decode_step(self.cfg, self.params,
-                                             self.cache, {"tokens": tokens},
-                                             pos)
+                                             self.cache, batch, pos)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         self.tokens = nxt[:, None] % self.cfg.vocab_size
         self.pos = np.minimum(self.pos + 1, self.max_seq - 1)

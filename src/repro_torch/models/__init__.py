@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense attention + MLP families in PyTorch.
+"""Model zoo of the port in PyTorch: the dense attention + MLP families,
+MoE (``moe``), MLA (``mla``) and the modality frontend stubs.
 
 Counterpart of ``repro.models`` with the same exports, as far as they
 are ported (no ``loss_fn``: training is not ported yet).

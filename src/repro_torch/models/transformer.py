@@ -1,18 +1,28 @@
 """Model assembly: init, forward, prefill and decode passes (PyTorch).
 
-Counterpart of ``repro.models.transformer`` for blocks with
-``mixer="attn"`` and ``ffn="mlp"`` (the dense families: gemma3, glm4).
-The reference stacks each stage's per-period parameters on a leading
+Counterpart of ``repro.models.transformer`` for blocks with ``mixer`` in
+``{"attn", "mla"}`` and ``ffn`` in ``{"mlp", "moe"}`` (the dense families,
+deepseek-moe and deepseek-v3), and for the modality frontend stubs: with
+``cfg.frontend`` set, every pass takes precomputed ``batch["embeds"]``
+[B, S, D] (cast to the model dtype) instead of ``batch["tokens"]``.  The
+reference stacks each stage's per-period parameters on a leading
 ``n_periods`` axis and scans over it; the port keeps the same names with
 that axis turned into a Python list, ``params[f"stage{si}"][period]
 [f"block{i}"]``, and runs the layers in a plain loop.  The cache mirrors
-it: ``cache[f"stage{si}"][period][f"block{i}"]["mixer"] = {"k", "v"}``.
+it: ``cache[f"stage{si}"][period][f"block{i}"]["mixer"]`` is ``{"k", "v"}``
+for attention and ``{"c_kv", "k_pe"}`` for MLA.
 
 Inference only: ``forward`` has no remat and no loss.  Prefill attention
-runs the hand-written flash kernel on CUDA tensors (``backend="ref"``
-forces the plain version, to compare the two on the card).  ``mla``,
-``mamba``, ``rwkv6``, ``moe``, modality frontends and ``ShardCtx`` are
-not ported yet and raise ``NotImplementedError`` naming ``ROADMAP.md``.
+(and MLA's expanded form) runs the hand-written flash kernel on CUDA
+tensors (``backend="ref"`` forces the plain version, to compare the two
+on the card).  A MoE block runs ``moe_block_local`` on one device plus
+the shared experts, as the reference does without a ``ShardCtx``; its
+aux loss is summed over the layers in ``forward``.  With ``cfg.mtp_depth``
+``init_params`` builds the reference's ``params["mtp"]`` head; only the
+training loss reads it, so serving carries it and never runs it.
+``mamba``, ``rwkv6``, ``rwkv6_cmix``, ``ShardCtx`` and the MoE mesh path
+are not ported yet and raise ``NotImplementedError`` naming
+``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -26,11 +36,15 @@ from .attention import (attention_decode, attention_prefill,
 from .config import BlockSpec, ModelConfig
 from .layers import (dense, embed, init_dense, init_embedding, init_mlp,
                      init_rms_norm, mlp_block, rms_norm, unembed)
+from .mla import init_mla, init_mla_cache, mla_decode, mla_prefill, mla_train
+from .moe import init_moe, moe_block_local, shared_expert_mlp
 
 __all__ = ["ShardCtx", "init_params", "forward", "prefill", "decode_step",
            "init_cache"]
 
 _NOT_PORTED = "not ported to repro_torch yet (ROADMAP.md, queue 1)"
+_MIXERS = ("attn", "mla", "none")
+_FFNS = ("mlp", "moe", "none")
 
 
 class ShardCtx:
@@ -47,17 +61,12 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 def _check(cfg: ModelConfig, ctx: Optional[ShardCtx] = None) -> None:
     if ctx is not None:
         raise NotImplementedError(f"ShardCtx is {_NOT_PORTED}")
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"frontend {cfg.frontend!r} ({cfg.name}) is {_NOT_PORTED}")
-    if cfg.mtp_depth:
-        raise NotImplementedError(f"the MTP head ({cfg.name}) is {_NOT_PORTED}")
     for stage in cfg.stages:
         for spec in stage.pattern:
-            if spec.mixer != "attn":
+            if spec.mixer not in _MIXERS:
                 raise NotImplementedError(
                     f"mixer {spec.mixer!r} ({cfg.name}) is {_NOT_PORTED}")
-            if spec.ffn != "mlp":
+            if spec.ffn not in _FFNS:
                 raise NotImplementedError(
                     f"ffn {spec.ffn!r} ({cfg.name}) is {_NOT_PORTED}")
 
@@ -80,18 +89,26 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
                 device: torch.device) -> dict:
     dt = _dtype(cfg)
     d = cfg.d_model
-    return {
-        "norm1": init_rms_norm(d, device),
-        "mixer": init_attention(gen, d, _attn_cfg(cfg, spec), dt, device),
-        "norm2": init_rms_norm(d, device),
-        "ffn": init_mlp(gen, d, cfg.d_ff, cfg.act, dt, device),
-    }
+    p: Dict[str, Any] = {}
+    if spec.mixer != "none":
+        p["norm1"] = init_rms_norm(d, device)
+    if spec.mixer == "attn":
+        p["mixer"] = init_attention(gen, d, _attn_cfg(cfg, spec), dt, device)
+    elif spec.mixer == "mla":
+        p["mixer"] = init_mla(gen, d, cfg.mla, dt, device)
+    if spec.ffn != "none":
+        p["norm2"] = init_rms_norm(d, device)
+    if spec.ffn == "mlp":
+        p["ffn"] = init_mlp(gen, d, cfg.d_ff, cfg.act, dt, device)
+    elif spec.ffn == "moe":
+        p["ffn"] = init_moe(gen, d, cfg.moe, dt, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device: DeviceLike = None) -> dict:
     """Random weights from ``seed``, drawn on the device by a
-    ``torch.Generator`` there."""
+    ``torch.Generator`` there, leaf by leaf in float32 and then cast."""
     _check(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
@@ -109,10 +126,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
             {f"block{i}": _init_block(gen, cfg, spec, device)
              for i, spec in enumerate(stage.pattern)}
             for _ in range(stage.n_periods)]
+    if cfg.mtp_depth:
+        # DeepSeek-V3 MTP: a block predicting token t+2 from (h_t,
+        # embed(token_{t+1})); read by the training loss only
+        mtp_spec = BlockSpec(mixer="mla" if cfg.mla else "attn", ffn="mlp")
+        params["mtp"] = {
+            "combine": init_dense(gen, 2 * cfg.d_model, cfg.d_model, dt,
+                                  device),
+            "block": _init_block(gen, cfg, mtp_spec, device),
+        }
     return params
 
 
 # -- shared pieces ------------------------------------------------------------
+
+def _inputs(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """[B, S, D] block input: token embeddings, or a frontend stub's
+    precomputed ``embeds`` cast to the model dtype."""
+    if cfg.frontend is not None:
+        return batch["embeds"].to(_dtype(cfg))
+    return embed(params["embed"], batch["tokens"])
+
 
 def _positions(b: int, s: int, device: torch.device) -> torch.Tensor:
     return torch.arange(s, device=device)[None, :].expand(b, s)
@@ -125,41 +159,81 @@ def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return dense(params["lm_head"], x)
 
 
-def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    return x + mlp_block(p["ffn"], rms_norm(p["norm2"], x, cfg.norm_eps),
-                         cfg.act)
+def _apply_moe(cfg: ModelConfig, p: dict, h: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_apply_moe`` without a ``ShardCtx``: the local
+    block over all B * S tokens, plus the shared experts."""
+    b, s, d = h.shape
+    out, aux, _ = moe_block_local(p, h.reshape(b * s, d), cfg.moe,
+                                  n_shards=1, shard_ix=0, tp_axis=None,
+                                  act=cfg.act)
+    out = out.reshape(b, s, d)
+    if cfg.moe.n_shared:
+        out = out + shared_expert_mlp(p["shared"], h)
+    return out, aux
+
+
+def _ffn(cfg: ModelConfig, spec: BlockSpec, p: dict, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """-> (x after the FFN half of the block, the MoE aux loss or None)."""
+    if spec.ffn == "none":
+        return x, None
+    h = rms_norm(p["norm2"], x, cfg.norm_eps)
+    if spec.ffn == "mlp":
+        return x + mlp_block(p["ffn"], h, cfg.act), None
+    h, aux = _apply_moe(cfg, p["ffn"], h)
+    return x + h, aux
 
 
 # -- forward ------------------------------------------------------------------
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             ctx: Optional[ShardCtx] = None):
-    """Inference forward -> (logits [B, S, V], aux_loss)."""
+    """Inference forward -> (logits [B, S, V], aux_loss: the MoE layers'
+    load-balance losses summed, 0 without MoE)."""
     _check(cfg, ctx)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = embed(params["embed"], tokens)
+    x = _inputs(cfg, params, batch)
+    b, s, _ = x.shape
     positions = _positions(b, s, x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, p in _blocks(cfg, params):
-        h = rms_norm(p["norm1"], x, cfg.norm_eps)
-        x = x + attention_train(p["mixer"], h, positions,
-                                _attn_cfg(cfg, spec))
-        x = _ffn(cfg, p, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _head(cfg, params, x), aux
+        if spec.mixer != "none":
+            h = rms_norm(p["norm1"], x, cfg.norm_eps)
+            if spec.mixer == "attn":
+                h = attention_train(p["mixer"], h, positions,
+                                    _attn_cfg(cfg, spec))
+            else:
+                h = mla_train(p["mixer"], h, positions, cfg.mla,
+                              eps=cfg.norm_eps)
+            x = x + h
+        x, aux = _ffn(cfg, spec, p, x)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return _head(cfg, params, x), aux_total
 
 
 # -- cache --------------------------------------------------------------------
 
+def _init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
+                      max_seq: int, dt: torch.dtype,
+                      device: torch.device) -> dict:
+    if spec.mixer == "attn":
+        return {"mixer": init_kv_cache(batch, max_seq, _attn_cfg(cfg, spec),
+                                       dt, device)}
+    if spec.mixer == "mla":
+        return {"mixer": init_mla_cache(batch, max_seq, cfg.mla, dt, device)}
+    return {}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device: DeviceLike = None) -> dict:
-    """Zeroed decode cache, one ``{"mixer": {"k", "v"}}`` per layer."""
+    """Zeroed decode cache: ``{"mixer": {"k", "v"}}`` per attention layer,
+    ``{"mixer": {"c_kv", "k_pe"}}`` per MLA layer."""
     _check(cfg)
     device = resolve_device(device)
     dt = _dtype(cfg)
     return {f"stage{si}": [
-        {f"block{i}": {"mixer": init_kv_cache(
-            batch, max_seq, _attn_cfg(cfg, spec), dt, device)}
+        {f"block{i}": _init_block_cache(cfg, spec, batch, max_seq, dt, device)
          for i, spec in enumerate(stage.pattern)}
         for _ in range(stage.n_periods)]
         for si, stage in enumerate(cfg.stages)}
@@ -173,9 +247,8 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
     """Prefill a prompt of length S -> (last-position logits [B, V],
     cache filled for positions [0, S))."""
     _check(cfg, ctx)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = embed(params["embed"], tokens)
+    x = _inputs(cfg, params, batch)
+    b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     cache: Dict[str, Any] = {}
     for si, stage in enumerate(cfg.stages):
@@ -184,12 +257,20 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
             pc = {}
             for i, spec in enumerate(stage.pattern):
                 p = period[f"block{i}"]
-                h = rms_norm(p["norm1"], x, cfg.norm_eps)
-                h, kv = attention_prefill(p["mixer"], h, positions,
-                                          _attn_cfg(cfg, spec),
-                                          backend=backend)
-                x = _ffn(cfg, p, x + h)
-                pc[f"block{i}"] = {"mixer": kv}
+                c: Dict[str, Any] = {}
+                if spec.mixer != "none":
+                    h = rms_norm(p["norm1"], x, cfg.norm_eps)
+                    if spec.mixer == "attn":
+                        h, c["mixer"] = attention_prefill(
+                            p["mixer"], h, positions, _attn_cfg(cfg, spec),
+                            backend=backend)
+                    else:
+                        h, c["mixer"] = mla_prefill(
+                            p["mixer"], h, positions, cfg.mla,
+                            eps=cfg.norm_eps, backend=backend)
+                    x = x + h
+                x, _ = _ffn(cfg, spec, p, x)
+                pc[f"block{i}"] = c
             periods.append(pc)
         cache[f"stage{si}"] = periods
     logits = _head(cfg, params, x[:, -1:])
@@ -201,14 +282,21 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict,
                 pos: torch.Tensor, *, ctx: Optional[ShardCtx] = None
                 ) -> Tuple[torch.Tensor, dict]:
-    """One-token decode: batch {tokens [B, 1]}, pos [B].  Writes the new
-    K and V into ``cache`` in place; returns (logits [B, V], cache)."""
+    """One-token decode: batch {tokens [B, 1] | embeds [B, 1, D]}, pos [B].
+    Writes the new cache rows (K and V, or MLA's latent) into ``cache`` in
+    place; returns (logits [B, V], cache)."""
     _check(cfg, ctx)
-    x = embed(params["embed"], batch["tokens"])
+    x = _inputs(cfg, params, batch)
     for (spec, p), (_, c) in zip(_blocks(cfg, params), _blocks(cfg, cache)):
-        h = rms_norm(p["norm1"], x, cfg.norm_eps)
-        h, _ = attention_decode(p["mixer"], c["mixer"], h, pos,
-                                _attn_cfg(cfg, spec))
-        x = _ffn(cfg, p, x + h)
+        if spec.mixer != "none":
+            h = rms_norm(p["norm1"], x, cfg.norm_eps)
+            if spec.mixer == "attn":
+                h, _ = attention_decode(p["mixer"], c["mixer"], h, pos,
+                                        _attn_cfg(cfg, spec))
+            else:
+                h, _ = mla_decode(p["mixer"], c["mixer"], h, pos, cfg.mla,
+                                  eps=cfg.norm_eps)
+            x = x + h
+        x, _ = _ffn(cfg, spec, p, x)
     logits = _head(cfg, params, x)
     return logits[:, 0], cache

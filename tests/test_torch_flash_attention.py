@@ -21,7 +21,8 @@ from repro.kernels.flash_attention.ops import \
     flash_attention_fused as jax_flash_fused
 from repro.models.attention import flash_attention as jax_model_flash
 from repro_torch.kernels.dispatch import (compile_log, dispatch, get_kernel,
-                                          registered_kernels)
+                                          registered_kernels,
+                                          reset_compile_log)
 from repro_torch.kernels.flash_attention.ops import (flash_attention_cuda,
                                                      flash_attention_fused,
                                                      kernel_tiles)
@@ -116,6 +117,30 @@ def test_model_flash_matches_jax_model_path():
             q_chunk=16, kv_chunk=8))
         got = flash_attention(*_t(q, k, v), window=window).numpy()
         np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("dk,dv,padded", [(12, 8, 16), (24, 16, 32),
+                                           (192, 128, 256), (40, 40, 64)])
+def test_unbuilt_head_dims_are_zero_padded(dk, dv, padded):
+    """Head dims the kernel is not built for (MLA's q.k 192 and v 128)
+    go to it zero-padded to the next one it is, on either backend, and
+    the output is cut back to v's: the same values as the reference
+    model's flash, which takes Dk != Dv itself."""
+    from repro_torch.kernels.flash_attention.ops import padded_head_dim
+    assert padded_head_dim(dk, dv) == padded
+    assert padded_head_dim(128, 128) == 128 and padded_head_dim(300, 8) == 300
+    q, k, v = _inputs(1, 24, 2, 2, dk, dv, seed=dk)
+    want = np.asarray(jax_model_flash(*(jnp.asarray(a) for a in (q, k, v)),
+                                      q_chunk=8, kv_chunk=8))
+    reset_compile_log("flash_attention_fwd")
+    got = flash_attention_fused(*_t(q, k, v))
+    sigs = compile_log("flash_attention_fwd")["flash_attention_fwd"]
+    assert {tuple(shape[-1] for shape, _ in sig) for _, _, sig in sigs} \
+        == {(padded, padded, padded)}
+    assert got.shape == (1, 24, 2, 2, dv)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(flash_attention(*_t(q, k, v)).numpy(), want,
+                               atol=ATOL, rtol=RTOL)
 
 
 def test_layout_round_trip_is_per_head_attention():
@@ -349,3 +374,24 @@ def test_cuda_edge_cases_fall_on_the_kernel_tiles(cuda_device):
     tiles = kernel_tiles()
     assert 301 % tiles[1] != 0
     assert _trap_rows(300, 40, tiles)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_takes_mla_head_dims_padded(cuda_device):
+    """MLA's shape (q.k over 192 dims, v over 128; float32 q and k, bf16
+    v) goes through the kernel zero-padded to 256, within the bf16 bound
+    of its plain version."""
+    from repro_torch.kernels.dispatch import launches
+    q, k, v = _inputs(1, 300, 4, 1, 192, 128, seed=11)
+    tq, tk = (torch.from_numpy(a).to(cuda_device)
+              for a in (q * 192 ** -0.5 / 0.3, k / 0.3))
+    tv = torch.from_numpy(v).to(cuda_device, torch.bfloat16)
+    before = launches("flash_attention_fwd")
+    got = flash_attention_fused(tq, tk, tv)
+    assert launches("flash_attention_fwd") == before + 1
+    want = flash_attention_fused(tq, tk, tv, backend="ref")
+    weight = flash_attention_fused(tq, tk, tv.float().abs(), backend="ref")
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (1, 300, 4, 1, 128)
+    assert bool(((got.float() - want.float()).abs()
+                 <= _bf16_allowed(want, weight)).all())

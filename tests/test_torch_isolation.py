@@ -1,9 +1,9 @@
 """The port stands alone: it runs its main paths (UTS, Mariani-Silver,
 betweenness centrality, a master killed and resumed from its journal, a
 recorded run replayed and calibrated, open-loop traffic, a DAG, the
-examples, and the model's prefill, decode and serving loop) with jax and
-the reference package unimportable, no
-source file of it (nor ``chip_smoke.py``) imports either, and
+examples, the model's prefill, decode and serving loop, and a MoE and an
+MLA prefill) with jax and the reference package unimportable, no source
+file of it (nor ``chip_smoke.py``) imports either, and
 ``device=None`` never falls back to the CPU."""
 import json
 import os
@@ -91,6 +91,13 @@ step, _ = decode_step(cfg, params, arena, {"tokens": toks[:, -1:]},
                       torch.tensor([12]))
 rep = serve("gemma3-1b", smoke=True, n_requests=3, n_slots=2, max_seq=32,
             device="cpu")
+families = {}
+for arch in ("deepseek-moe-16b", "deepseek-v3-671b"):
+    fcfg = get_smoke_config(arch)
+    fl, fc = prefill(fcfg, init_params(fcfg, 0, device="cpu"),
+                     {"tokens": toks % fcfg.vocab_size})
+    families[arch] = [list(fl.shape), sorted(fc["stage1"][0]["block0"]
+                                             ["mixer"])]
 import repro_torch.trace.replay, repro_torch.trace.calibrate
 from repro_torch.core import ProviderModel
 from repro_torch.dag import montage_dag
@@ -118,7 +125,7 @@ print(json.dumps({
     "uts_resumed": resumed.output, "recovered": resumed.recovered_tasks,
     "bc_equal": bc_same, "bc_tasks": b.tasks,
     "prefill": list(logits.shape), "decode": list(step.shape),
-    "served": rep["requests"],
+    "served": rep["requests"], "families": families,
     "replayed": [rec.tasks, rep_same.tasks], "fitted": fitted.name,
     "dag_nodes": dag.dag_nodes, "sim_completed": sim["completed"],
     "quickstart": qs["nodes"], "bc_example_tasks": bc_ex["tasks"],
@@ -142,6 +149,9 @@ def test_main_path_runs_without_jax_or_repro():
     assert res["bc_equal"] and res["bc_tasks"] == 4
     assert res["prefill"] == res["decode"] == [1, 256]
     assert res["served"] == 3
+    assert res["families"] == {"deepseek-moe-16b": [[1, 256], ["k", "v"]],
+                               "deepseek-v3-671b": [[1, 256],
+                                                    ["c_kv", "k_pe"]]}
     assert res["replayed"][0] == res["replayed"][1] > 0
     assert res["fitted"] == "fitted" and res["dag_nodes"] == 17
     assert res["sim_completed"] > 0

@@ -45,6 +45,17 @@ def test_serving_end_to_end_matches_reference():
     assert rep["rounds"] == ref["rounds"]
 
 
+@pytest.mark.parametrize("arch", ["musicgen-medium", "deepseek-moe-16b"])
+def test_frontend_and_moe_configs_serve_as_the_reference(arch):
+    """A frontend stub (the engine feeds zero embeddings) and a MoE
+    config answer every request, in the reference's decode steps."""
+    rep = serve(arch, device="cpu", **KW)
+    ref = jax_serve(arch, **KW)
+    assert rep["requests"] == ref["requests"] == 6
+    assert rep["engine_decode_steps"] == ref["engine_decode_steps"]
+    assert rep["tokens"] == ref["tokens"]
+
+
 def test_engine_counts_prefill_and_decodes_all_slots():
     cfg = get_smoke_config("gemma3-1b")
     eng = TorchEngine(cfg, n_slots=3, max_seq=8, device="cpu")

@@ -161,7 +161,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    dropped per MoE layer and the routing decisions that differ between
    the kernel's and the plain version's prefill (a bf16 near-tie may
    flip; the gate stays the logits');
-12. every process the run started is stopped and waited for (the
+12. the recurrent families (``phase_recurrent_families``), random bf16
+   weights from seed 0: rwkv6-1.6b at full width and depth (24 layers of
+   RWKV-6 time and channel mix) with the same prefill of 32,768 tokens
+   (24 ``wkv6`` launches, no flash launch), 32 decode steps (24 ``wkv6``
+   launches each), ``wkv6`` on a layer's own prefill operands against its
+   plain version (bit-equal) with its bound, a profiled prefill and four
+   decode steps, the whole model at S = 4096 under phase 10's gate, and
+   ``serve`` with 16 requests (24 ``wkv6`` launches a decode step);
+   jamba-v0.1-52b at full width cut to one period of 8 layers (from 4: 7
+   Mamba layers, one attention layer, 4 MoE and 4 MLP FFNs; listed as
+   ``reduced``; its 51.6e9 parameters do not fit on one card, so it is not
+   served), the same prefill (7 ``selective_scan`` launches and one flash
+   launch), 32 decode steps, ``selective_scan`` and flash on the prefill's
+   own operands, and the whole model at S = 4096 with the MoE routing
+   replayed, as in phase 11; every path of this phase counts the
+   launches of all three kernels it may run;
+13. every process the run started is stopped and waited for (the
    resource tracker of the BC oracle's spawn pool, which would outlive
    the script, and any other left over, listed in the report), then one
    JSON line with every kernel's launches on each main path, error,
@@ -169,14 +185,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    A failing run stops its processes too.
 
 Each of the main-path runs (three UTS, two Mariani-Silver, three BC,
-prefill, decode, serve, and each family's prefill and decode and the MoE
-serve), and each run of phases 8 and 9 on the card, is
+prefill, decode, serve, each family's prefill and decode, the MoE and
+rwkv6 serves), and each run of phases 8 and 9 on the card, is
 driven with the launch counts set to 0 just before it and read just after
 it, and fails unless its kernel launched (BC: both level kernels); phase
 9's replays, fit and host-only rows must launch none.  Decode and
-serve run no hand kernel (the decode product is plain PyTorch, as the
-reference leaves it to XLA, and the batcher's prefill only counts
-tokens); their flash launches are read and reported, 0.  The depth 4..10
+serve of the attention models run no hand kernel (the decode product is
+plain PyTorch, as the reference leaves it to XLA, and the batcher's
+prefill only counts tokens); their flash launches are read and reported,
+0.  The recurrent models' decode and serve run the scan kernels, one
+launch a recurrent layer and step, and must.  The depth 4..10
 checks and every comparison launch fall outside those counts.  During the
 runs a seeded sample of the operands each kernel is given (a few per
 distinct padded shape and static arguments; for ``uts_expand``, per
@@ -292,6 +310,10 @@ KERNEL_SOURCES = {
     "bc_backward_level": ("src/repro_torch/kernels/csrc/bc_level.cu",
                           "none (XLA dots, src/repro/algorithms/"
                           "betweenness.py:107, :124)"),
+    "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                       "none (XLA lax.scan, src/repro/models/mamba.py:93)"),
+    "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
+             "none (XLA lax.scan, src/repro/models/rwkv6.py:106)"),
 }
 
 
@@ -848,13 +870,16 @@ class OperandTap:
     in order of arrival, so runs with concurrent workers keep different
     samples.  It holds references, not copies:
     dispatch hands a body freshly padded tensors or the caller's own,
-    which nothing writes afterwards.
+    which nothing writes afterwards; except the arguments at the positions
+    in ``clone``, which the body updates in place (a recurrent state), and
+    which a kept sample copies before the body runs.
     """
 
-    def __init__(self, name: str, k: int, seed: int = 0, key=None) -> None:
+    def __init__(self, name: str, k: int, seed: int = 0, key=None,
+                 clone: tuple = ()) -> None:
         import random
         import threading
-        self.name, self.k = name, k
+        self.name, self.k, self.clone = name, k, frozenset(clone)
         self.key = key or (lambda args, static: (
             tuple(tuple(a.shape) for a in args),
             tuple(sorted(static.items()))))
@@ -875,17 +900,20 @@ class OperandTap:
         register_kernel(self.op)
 
     def _body(self, *args, **static):
-        out = self.op.cuda_body(*args, **static)
         key = self.key(args, static)
         with self.lock:
             seen = self.seen[key] = self.seen.get(key, 0) + 1
-            kept = self.samples.setdefault(key, [])
-            if len(kept) < self.k:
-                kept.append((args, static))
-            else:
-                j = self.rng.randrange(seen)
-                if j < self.k:
-                    kept[j] = (args, static)
+            slot = seen - 1 if seen <= self.k else self.rng.randrange(seen)
+        offer = tuple(a.clone() if i in self.clone else a
+                      for i, a in enumerate(args)) if slot < self.k else None
+        out = self.op.cuda_body(*args, **static)
+        if offer is not None:
+            with self.lock:
+                kept = self.samples.setdefault(key, [])
+                if slot < len(kept):
+                    kept[slot] = (offer, static)
+                else:
+                    kept.append((offer, static))
         return out
 
 
@@ -3511,7 +3539,8 @@ def flash_bound(q2, k2, v2, causal: bool, window) -> tuple:
 def sdpa(q2, k2, v2, causal: bool, window):
     """``F.scaled_dot_product_attention`` on the kernel's operands: the
     yardstick ``library_ms``, timed only, never called by the port.  It
-    takes one dtype, so operands of two are passed in the wider."""
+    takes one dtype, so operands of two are passed in the wider (and
+    ``check_flash`` passes K and V repeated to the query heads)."""
     import torch
     import torch.nn.functional as F
     bhg, sq, d = q2.shape
@@ -3634,7 +3663,13 @@ def check_flash(q2, k2, v2, *, causal: bool, window, softcap=None,
             lambda: flash_attention_ref(q2, k2, v2, **kw), reps=reps)
         if softcap is None:
             wide = q2.dtype if q2.dtype == v2.dtype else torch.float32
-            lq, lk, lv = (t.to(wide) for t in (q2, k2, v2))
+            # K and V repeated to every query head beforehand: SDPA's
+            # enable_gqa runs float32 in the math backend, which
+            # materialises the [G, Sq, Skv] scores (128 GiB at jamba's
+            # 32k layer), where equal heads take the memory-efficient one
+            groups = q2.shape[0] // k2.shape[0]
+            lq, lk, lv = (t.to(wide).repeat_interleave(
+                1 if t is q2 else groups, dim=0) for t in (q2, k2, v2))
             rec["library_ms"] = cuda_time_ms(
                 lambda: sdpa(lq, lk, lv, causal, window), reps=reps)
             rec["library_dtype"] = str(wide)[6:]
@@ -3914,15 +3949,45 @@ def family_inputs(cfg, n: int, dev, seed: int):
         (1, n, cfg.d_model), np.float32)).to(dev, torch.bfloat16)
 
 
-def family_paths(dev, cfg, prefill_s: int, decode_steps: int,
-                 paths: dict) -> dict:
+#: the kernels whose launches every path of the model phases counts
+MODEL_KERNELS = ("flash_attention_fwd", "selective_scan", "wkv6")
+
+
+def counted_path(name: str, fn, want: dict, paths: dict) -> tuple:
+    """Drive one path with the launch counts set to 0 just before it and
+    read just after (``MODEL_KERNELS``, each into
+    ``paths[kernel][name]``); returns ``(result, seconds, counts)``.  Fails
+    unless every kernel in ``want`` launched exactly that often."""
+    import torch
+    from repro_torch.kernels import launches, reset_launches
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    got = {k: launches(k) for k in MODEL_KERNELS}
+    for k, n in got.items():
+        paths.setdefault(k, {})[name] = n
+    bad = {k: {"got": got[k], "want": n} for k, n in want.items()
+           if got[k] != n}
+    if bad:
+        raise AssertionError(f"{name}: kernel launches {bad}")
+    return out, wall, got
+
+
+def model_paths(dev, cfg, prefill_s: int, decode_steps: int, paths: dict,
+                want_prefill: dict, want_step: dict, taps: tuple = ()) -> dict:
     """One config on the card: random bf16 weights from seed 0 (drawn on
-    the device leaf by leaf in float32, then cast); the prefill path
-    (every layer launches the flash kernel once; finite logits; peak memory
-    and the MoE pairs dropped per layer); ``decode_steps`` decode steps on
-    from its cache, fed the seeded inputs.  Records each path's flash
-    launches in ``paths``; returns the record with the weights, the
-    inputs, the decode arena and the flash operand tap for the caller."""
+    the device leaf by leaf in float32, then cast); the prefill of
+    ``prefill_s`` tokens with ``taps`` open (each kernel launching as
+    ``want_prefill`` says; finite logits; peak memory and the MoE pairs
+    dropped per layer); ``decode_steps`` decode steps on from its cache
+    (the attention leaves padded), fed the seeded inputs, each launching
+    as ``want_step`` says.  Records each path's launches in ``paths``
+    (``counted_path``); returns the record with the weights, the inputs
+    and the decode arena for the caller."""
+    import contextlib
     import torch
     from repro_torch.models import decode_step, init_params, prefill
     name = cfg.name
@@ -3931,59 +3996,58 @@ def family_paths(dev, cfg, prefill_s: int, decode_steps: int,
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     n_params = sum(t.numel() for _, t in _leaves(params))
-    log(f"[families] {name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(f"[model] {name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{n_params} parameters (bf16; {cfg.param_count()} by the config's "
         f"count, which leaves out any MTP head), random weights from seed 0 "
         f"in {init_s:.3f} s")
     inputs = family_inputs(cfg, max(prefill_s + decode_steps,
                                     MODEL_CMP_S + 1), dev, seed=7)
     torch.cuda.reset_peak_memory_stats()
-    with OperandTap("flash_attention_fwd", k=1) as tap, MoETap() as moe:
-        (logits, cache), pre_s, n_pre = run_path(
-            f"{name} prefill", "flash_attention_fwd",
-            lambda: prefill(cfg, params, model_batch(cfg, inputs, 0,
-                                                     prefill_s)))
+    with contextlib.ExitStack() as stack:
+        for tap in taps:
+            stack.enter_context(tap)
+        moe = stack.enter_context(MoETap())
+        (logits, cache), pre_s, n_pre = counted_path(
+            f"{name} prefill", lambda: prefill(
+                cfg, params, model_batch(cfg, inputs, 0, prefill_s)),
+            want_prefill, paths)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if n_pre != cfg.n_layers:
-        raise AssertionError(f"{name} prefill: {n_pre} flash_attention_fwd "
-                             f"launches, want {cfg.n_layers}")
     if logits.shape != (1, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{name} prefill logits {tuple(logits.shape)} "
                              f"not finite")
     dropped = moe.dropped()
-    log(f"[families] {name} prefill S={prefill_s} batch 1: {pre_s:.3f} s, "
-        f"{prefill_s / pre_s:.1f} tokens/s, {n_pre} flash_attention_fwd "
-        f"launches, peak memory {peak_gb:.2f} GB"
-        + (f"; pairs dropped at capacity per MoE layer {dropped} "
-           f"({sum(dropped)} of {len(dropped) * prefill_s * cfg.moe.top_k})"
-           if cfg.moe is not None else ""))
+    log(f"[model] {name} prefill S={prefill_s} batch 1: {pre_s:.3f} s, "
+        f"{prefill_s / pre_s:.1f} tokens/s, launches {n_pre}, peak memory "
+        f"{peak_gb:.2f} GB" + (
+            f"; pairs dropped at capacity per MoE layer {dropped} "
+            f"({sum(dropped)} of {len(dropped) * prefill_s * cfg.moe.top_k})"
+            if cfg.moe is not None else ""))
     del moe
     arena = padded_cache(cache, prefill_s + decode_steps)
     del cache
 
     def decode_all():
         times = []
-        for t in range(decode_steps):
+        for t in range(prefill_s, prefill_s + decode_steps):
             t1 = time.monotonic()
-            lg, _ = decode_step(cfg, params, arena, model_batch(
-                cfg, inputs, prefill_s + t, prefill_s + t + 1),
-                torch.tensor([prefill_s + t], device=dev))
+            lg, _ = decode_step(cfg, params, arena,
+                                model_batch(cfg, inputs, t, t + 1),
+                                torch.tensor([t], device=dev))
             torch.cuda.synchronize()
             times.append(time.monotonic() - t1)
             if not bool(torch.isfinite(lg).all()):
-                raise AssertionError(f"{name} decode step {t}: logits not "
+                raise AssertionError(f"{name} decode at {t}: logits not "
                                      f"finite")
         return times
 
-    step_s, dec_s, n_dec = run_path(f"{name} decode", "flash_attention_fwd",
-                                    decode_all, required=False)
-    log(f"[families] {name} decode {decode_steps} steps on from the "
-        f"{prefill_s} prefill: median step {statistics.median(step_s) * 1e3:.3f}"
-        f" ms, first {step_s[0] * 1e3:.3f} ms, {n_dec} flash_attention_fwd "
-        f"launches (the decode product is plain PyTorch)")
-    paths[f"{name} prefill"] = n_pre
-    paths[f"{name} decode"] = n_dec
+    step_s, dec_s, n_dec = counted_path(
+        f"{name} decode", decode_all,
+        {k: n * decode_steps for k, n in want_step.items()}, paths)
+    log(f"[model] {name} decode {decode_steps} steps on from the "
+        f"{prefill_s} prefill: median step "
+        f"{statistics.median(step_s) * 1e3:.3f} ms, first "
+        f"{step_s[0] * 1e3:.3f} ms, launches {n_dec}")
     rec = {"n_params": n_params, "param_count": cfg.param_count(),
            "init_params_s": init_s,
            "prefill": {"seq": prefill_s, "batch": 1, "seconds": pre_s,
@@ -3994,8 +4058,35 @@ def family_paths(dev, cfg, prefill_s: int, decode_steps: int,
                       "step_ms": [t * 1e3 for t in step_s],
                       "median_step_ms": statistics.median(step_s) * 1e3,
                       "launches": n_dec}}
-    return {"rec": rec, "params": params, "inputs": inputs, "arena": arena,
-            "tap": tap}
+    return {"rec": rec, "params": params, "inputs": inputs, "arena": arena}
+
+
+def model_serve(dev, arch: str, paths: dict, want: dict) -> dict:
+    """``serve(arch)`` at full width, closed loop (``SERVE``), as a path
+    (``counted_path``): every request answered; ``want`` maps a kernel to
+    its launches per engine decode step."""
+    from repro_torch.launch.serve import serve
+    rep, serve_s, n_srv = counted_path(
+        f"{arch} serve",
+        lambda: serve(arch, smoke=False, seed=0, device=dev, **SERVE), {},
+        paths)
+    if rep["requests"] != SERVE["n_requests"]:
+        raise AssertionError(f"{arch} serve answered {rep['requests']} of "
+                             f"{SERVE['n_requests']} requests")
+    bad = {k: n_srv[k] for k, n in want.items()
+           if n_srv[k] != n * rep["engine_decode_steps"]}
+    if bad:
+        raise AssertionError(f"{arch} serve: launches {bad} in "
+                             f"{rep['engine_decode_steps']} decode steps, "
+                             f"want {want} a step")
+    log(f"[serve] {arch} full width, {SERVE}: {rep['requests']} requests, "
+        f"{rep['tokens']} tokens, {rep['engine_decode_steps']} decode steps, "
+        f"{rep['wall_s']:.3f} s in the batcher, {rep['tok_per_s']:.1f} tok/s,"
+        f" p50 TTFT {rep['ttft_p50']:.3f} s, launches {n_srv}")
+    return {k: rep[k] for k in (
+        "requests", "tokens", "rounds", "wall_s", "tok_per_s", "ttft_p50",
+        "ttft_p99", "engine_decode_steps")} | {"seconds": serve_s,
+                                               "launches": n_srv, **SERVE}
 
 
 def tapped_flash(tap, label: str, unpadded=None) -> dict:
@@ -4044,20 +4135,29 @@ def phase_model_families(dev) -> dict:
     import dataclasses
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import serve
     from repro_torch.models import Stage, decode_step
     t_phase = time.monotonic()
     paths: dict = {}
     out: dict = {"launches": paths}
 
+    def run_model(cfg, prefill_s: int, decode_steps: int, tap=None):
+        # every attention or MLA layer launches the flash kernel once in
+        # prefill; decode runs no hand kernel
+        return model_paths(dev, cfg, prefill_s, decode_steps, paths,
+                           {"flash_attention_fwd": cfg.n_layers},
+                           {"flash_attention_fwd": 0},
+                           (tap,) if tap is not None else ())
+
     # -- deepseek-moe-16b, full width and depth --------------------------
     cfg = get_config(MOE_ARCH)
     with torch.inference_mode():
-        run = family_paths(dev, cfg, PREFILL_S, DECODE_STEPS, paths)
+        tap = OperandTap("flash_attention_fwd", k=1)
+        run = run_model(cfg, PREFILL_S, DECODE_STEPS, tap)
         params, inputs, arena = run["params"], run["inputs"], run["arena"]
         rec = run["rec"]
         rec["flash_global_layer"] = tapped_flash(
-            run.pop("tap"), f"{MOE_ARCH} prefill layer operands")
+            tap, f"{MOE_ARCH} prefill layer operands")
+        del tap
         rec["profile"] = profile_model(
             cfg, params, model_batch(cfg, inputs, 0, PREFILL_S),
             lambda t: decode_step(cfg, params, arena, model_batch(
@@ -4069,23 +4169,8 @@ def phase_model_families(dev) -> dict:
         rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
         del params, inputs
     torch.cuda.empty_cache()
-    rep, serve_s, n_srv = run_path(
-        f"{MOE_ARCH} serve", "flash_attention_fwd",
-        lambda: serve(MOE_ARCH, smoke=False, seed=0, device=dev, **SERVE),
-        required=False)
-    if rep["requests"] != SERVE["n_requests"]:
-        raise AssertionError(f"{MOE_ARCH} serve answered {rep['requests']} "
-                             f"of {SERVE['n_requests']} requests")
-    paths[f"{MOE_ARCH} serve"] = n_srv
-    log(f"[serve] {MOE_ARCH} full width, {SERVE}: {rep['requests']} "
-        f"requests, {rep['tokens']} tokens, {rep['engine_decode_steps']} "
-        f"decode steps, {rep['wall_s']:.3f} s in the batcher, "
-        f"{rep['tok_per_s']:.1f} tok/s, p50 TTFT {rep['ttft_p50']:.3f} s, "
-        f"{n_srv} flash_attention_fwd launches")
-    rec["serve"] = {k: rep[k] for k in (
-        "requests", "tokens", "rounds", "wall_s", "tok_per_s", "ttft_p50",
-        "ttft_p99", "engine_decode_steps")} | {"seconds": serve_s,
-                                               "launches": n_srv, **SERVE}
+    rec["serve"] = model_serve(dev, MOE_ARCH, paths,
+                               {"flash_attention_fwd": 0})
     out[MOE_ARCH] = rec
     torch.cuda.empty_cache()
 
@@ -4094,14 +4179,15 @@ def phase_model_families(dev) -> dict:
     cfg = dataclasses.replace(full, stages=tuple(
         Stage(1, st.pattern) for st in full.stages))
     with torch.inference_mode():
-        run = family_paths(dev, cfg, MLA_PREFILL_S, MLA_DECODE_STEPS, paths)
+        tap = OperandTap("flash_attention_fwd", k=1)
+        run = run_model(cfg, MLA_PREFILL_S, MLA_DECODE_STEPS, tap)
         rec = run["rec"]
         if "mtp" not in run["params"]:
             raise AssertionError(f"{MLA_ARCH}: no MTP head initialised")
         rec["mtp_params"] = sum(t.numel() for _, t in
                                 _leaves(run["params"]["mtp"]))
         rec["flash_mla_layer"] = tapped_flash(
-            run.pop("tap"), f"{MLA_ARCH} prefill MLA layer operands "
+            tap, f"{MLA_ARCH} prefill MLA layer operands "
             f"(zero-padded)", unpadded=(cfg.mla.qk_head_dim,
                                         cfg.mla.v_head_dim))
         del run["arena"]
@@ -4120,10 +4206,9 @@ def phase_model_families(dev) -> dict:
         cfg = dataclasses.replace(full, stages=(
             Stage(DENSE_LAYERS, full.stages[0].pattern),))
         with torch.inference_mode():
-            run = family_paths(dev, cfg, DENSE_PREFILL_S, DENSE_DECODE_STEPS,
-                               paths)
+            run = run_model(cfg, DENSE_PREFILL_S, DENSE_DECODE_STEPS)
             rec = run["rec"]
-            del run["arena"], run["tap"]
+            del run["arena"]
             rec["whole_model"] = compare_model(
                 cfg, run["params"], run["inputs"][:, :MODEL_CMP_S + 1], dev)
             del run
@@ -4132,6 +4217,188 @@ def phase_model_families(dev) -> dict:
         torch.cuda.empty_cache()
     out["seconds"] = time.monotonic() - t_phase
     log(f"[families] phase: {out['seconds']:.1f} s")
+    return out
+
+
+# -- the recurrent families: rwkv6 and the jamba hybrid ----------------------
+
+#: rwkv6-1.6b at full width and depth (24 layers of RWKV-6 time and channel
+#: mix, no attention): the model path's prefill and decode, and serving
+RWKV_ARCH = "rwkv6-1.6b"
+#: jamba-v0.1-52b at full width, depth cut from 4 periods of 8 layers to one
+#: (7 Mamba layers and one attention layer; 4 MoE and 4 MLP FFNs)
+JAMBA_ARCH = "jamba-v0.1-52b"
+#: the scan kernels against their plain versions: held within this share of
+#: the largest |output| (and |state|); they round alike and sum in the same
+#: tree, so they are bit-equal, which the check reports
+SCAN_REL_TOL = 1e-5
+#: float operations per state value and step, counted from the reference's
+#: step (an exp as one): selective_scan dt*A, exp, x*B, dt*bx, state*dA, +,
+#: state*C, +; wkv6 k*v, u*kv, +, r*(..), +, state*w, +
+SCAN_OPS = {"selective_scan": 8, "wkv6": 7}
+
+
+
+
+def scan_bound(name: str, args) -> tuple:
+    """Least card time for one scan: its operands read once and its
+    outputs written once (float32; the state both ways), against
+    ``SCAN_OPS`` float operations per state value and step at the float32
+    rate outside the tensor cores."""
+    *ops, state = args
+    seq = ops[0]                         # xi [B, S, Di] or r [B, S, H, hd]
+    per_step = ops[4].shape[-1]          # N, or hd
+    n_bytes = 4 * (sum(t.numel() for t in ops) + 2 * state.numel()
+                   + seq.numel())
+    return bound_ms(n_bytes, SCAN_OPS[name] * seq.numel() * per_step)
+
+
+def check_scan(name: str, tap, label: str, reps: int = 3) -> dict:
+    """A scan kernel against its plain version on the one set of operands
+    the prefill's tap kept (a layer of the main path; the state as it was
+    before the launch): the output and the final state within
+    ``SCAN_REL_TOL`` of the largest |value|; the kernel's CUDA-event time
+    (median of ``reps``), the plain version's (one run, whose output is the
+    one compared: a Python loop of some 8 launches a step), and the bound.
+    No single PyTorch call computes either recurrence: no library time."""
+    import torch
+    from repro_torch.kernels.dispatch import dispatch
+    (kept,) = tap.samples.values()
+    args, static = kept[0]
+    *ops, state0 = args
+
+    def run(state, backend):
+        return dispatch(name, *ops, state, backend=backend, **static)
+
+    st_r, st_k = state0.clone(), state0.clone()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    want, _ = run(st_r, "ref")
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    got, _ = run(st_k, "cuda")
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    s_err = float((st_k - st_r).abs().max())
+    s_scale = float(st_r.abs().max())
+    bit_equal = bool(torch.equal(got, want) and torch.equal(st_k, st_r))
+    del got, want, st_r, st_k
+    scratch = state0.clone()
+    ms = cuda_time_ms(lambda: run(scratch, "cuda"), reps=reps)
+    b_ms, b_by = scan_bound(name, args)
+    shape = " ".join(f"{list(t.shape)}" for t in args)
+    log(f"[recurrent] {label}: {name} {shape}: max |d out| {err:.3e} of "
+        f"max |out| {scale:.3e}, max |d state| {s_err:.3e} of {s_scale:.3e} "
+        f"(allowed {SCAN_REL_TOL:.0e} of each), bit-equal {bit_equal}; "
+        f"kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    if not (err <= SCAN_REL_TOL * scale and s_err <= SCAN_REL_TOL * s_scale):
+        raise AssertionError(f"{label}: {name} disagrees with its plain "
+                             f"version")
+    del scratch
+    return {"shape": shape, "max_abs_err": err, "max_abs_out": scale,
+            "max_abs_err_state": s_err, "max_abs_state": s_scale,
+            "rel_tol": SCAN_REL_TOL, "bit_equal": bit_equal, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "launches": sum(tap.seen.values())}
+
+
+def phase_recurrent_families(dev) -> dict:
+    """rwkv6-1.6b at full width and depth (prefill of 32,768 tokens with a
+    ``wkv6`` launch a layer and no flash launch, 32 decode steps, the
+    kernel on a layer's own prefill operands against its plain version and
+    bound, a profiled prefill and decode, the whole model with kernel and
+    plain version at S = 4096, closed-loop serving) and jamba-v0.1-52b at
+    full width cut to one period of 8 layers (prefill of 32,768 tokens with
+    7 ``selective_scan`` launches and one flash launch, 32 decode steps,
+    both kernels on the prefill's own operands, the whole model at
+    S = 4096 with the MoE routing replayed)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Stage, decode_step
+    t_phase = time.monotonic()
+    paths: dict = {}
+    out: dict = {"launches": paths}
+
+    # -- rwkv6-1.6b, full width and depth --------------------------------
+    cfg = get_config(RWKV_ARCH)
+    # one wkv6 launch a layer, in prefill and in every decode step
+    per_pass = {"wkv6": cfg.n_layers, "selective_scan": 0,
+                "flash_attention_fwd": 0}
+    with torch.inference_mode():
+        tap = OperandTap("wkv6", k=1, clone=(5,))
+        run = model_paths(dev, cfg, PREFILL_S, DECODE_STEPS, paths, per_pass,
+                          per_pass, (tap,))
+        params, inputs, arena = run["params"], run["inputs"], run["arena"]
+        rec = run["rec"]
+        rec["wkv6_layer"] = check_scan("wkv6", tap,
+                                       f"{RWKV_ARCH} prefill layer operands")
+        del tap
+        rec["profile"] = profile_model(
+            cfg, params, model_batch(cfg, inputs, 0, PREFILL_S),
+            lambda t: decode_step(cfg, params, arena, model_batch(
+                cfg, inputs, t, t + 1), torch.tensor([t], device=dev)),
+            PREFILL_S + DECODE_STEPS, RWKV_ARCH)
+        del arena, run
+        rec["whole_model"] = compare_model(
+            cfg, params, inputs[:, :MODEL_CMP_S + 1], dev)
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del params, inputs
+    torch.cuda.empty_cache()
+    # a slot carries its recurrent state from request to request, as the
+    # reference's engine does
+    rec["serve"] = model_serve(dev, RWKV_ARCH, paths, per_pass)
+    out[RWKV_ARCH] = rec
+    torch.cuda.empty_cache()
+
+    # -- jamba-v0.1-52b, full width, one period ----------------------------
+    full = get_config(JAMBA_ARCH)
+    cfg = dataclasses.replace(full, stages=(
+        Stage(1, full.stages[0].pattern),))
+    pattern = cfg.stages[0].pattern
+    n_mamba = sum(spec.mixer == "mamba" for spec in pattern)
+    n_attn = sum(spec.mixer == "attn" for spec in pattern)
+    with torch.inference_mode():
+        stap = OperandTap("selective_scan", k=1, clone=(5,))
+        ftap = OperandTap("flash_attention_fwd", k=1)
+        run = model_paths(
+            dev, cfg, PREFILL_S, DECODE_STEPS, paths,
+            {"selective_scan": n_mamba, "wkv6": 0,
+             "flash_attention_fwd": n_attn},
+            {"selective_scan": n_mamba, "wkv6": 0,
+             "flash_attention_fwd": 0}, (stap, ftap))
+        rec = run["rec"]
+        del run["arena"]
+        rec["selective_scan_layer"] = check_scan(
+            "selective_scan", stap, f"{JAMBA_ARCH} prefill Mamba layer "
+            f"operands")
+        rec["flash_attention_layer"] = tapped_flash(
+            ftap, f"{JAMBA_ARCH} prefill attention layer operands")
+        del stap, ftap
+        rec["whole_model"] = compare_model(
+            cfg, run["params"], run["inputs"][:, :MODEL_CMP_S + 1], dev)
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del run
+    log(f"[recurrent] {JAMBA_ARCH}: peak memory {rec['peak_memory_gb']:.2f} "
+        f"GB; not served: serve builds the registry's full config "
+        f"({full.param_count()} parameters, "
+        f"{full.param_count() * 2 / 1e9:.1f} GB in bf16), which does not fit "
+        f"in this card's "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB")
+    rec["reduced"] = {"n_layers": [full.n_layers, cfg.n_layers],
+                      "stages": f"one period of {len(pattern)} layers (from "
+                                f"{full.stages[0].n_periods}): {n_mamba} "
+                                f"Mamba, {n_attn} attention; 4 MoE, 4 MLP"}
+    rec["serve"] = {"skipped": "the full config does not fit on one card"}
+    out[JAMBA_ARCH] = rec
+    torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t_phase
+    log(f"[recurrent] phase: {out['seconds']:.1f} s")
     return out
 
 
@@ -4159,8 +4426,10 @@ def compare_model(cfg, params, inputs, dev) -> dict:
     """The whole model, right at full width, on ``inputs[:, :S + 1]``:
     last-position logits of ``prefill(S)`` with the kernel and with the
     plain version forced (same weights); one decode step on each of their
-    caches; and prefill(S) plus one decode step against prefill(S + 1),
-    all under the gate of ``close_logits``.
+    caches (the second with the plain versions forced, which changes
+    nothing where decode runs no kernel: attention's); and prefill(S) plus
+    one decode step against prefill(S + 1), all under the gate of
+    ``close_logits``.
 
     MoE routing is discrete, and at full depth with random weights it
     amplifies rounding: a token's top-k expert set flips on a near-tie,
@@ -4205,7 +4474,7 @@ def compare_model(cfg, params, inputs, dev) -> dict:
         ld, _ = decode_step(cfg, params, padded_cache(cache, s + 1), step, pos)
     with MoETap(replay=dk):
         ldr, _ = decode_step(cfg, params, padded_cache(cache_r, s + 1), step,
-                             pos)
+                             pos, backend="ref")
     del cache, cache_r
     out["decode_kernel_vs_plain"] = close_logits(
         ld, ldr, f"decode 1 on the prefill {s} caches, kernel vs plain")
@@ -4321,15 +4590,22 @@ class MoETap:
             r["experts"].shape[0] for r in self.layers)}
 
 
-def padded_cache(tree, length: int):
+#: the cache leaves with a sequence axis (attention's and MLA's); the
+#: recurrent layers' states and shifted inputs have none
+SEQ_LEAVES = ("k", "v", "c_kv", "k_pe")
+
+
+def padded_cache(tree, length: int, key: str = ""):
     """The prefill cache padded with zeros to ``length`` positions, each
     leaf in its own dtype (float32 k, bf16 v in a bf16 model), as
-    ``tests/test_models_consistency.py`` pads the reference's."""
-    import torch
+    ``tests/test_models_consistency.py`` pads the reference's; a recurrent
+    layer's leaves copied as they are (decode updates them in place)."""
     if isinstance(tree, dict):
-        return {k: padded_cache(v, length) for k, v in tree.items()}
+        return {k: padded_cache(v, length, k) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [padded_cache(v, length) for v in tree]
+        return [padded_cache(v, length, key) for v in tree]
+    if key not in SEQ_LEAVES:
+        return tree.clone()
     out = tree.new_zeros((tree.shape[0], length, *tree.shape[2:]))
     out[:, :tree.shape[1]] = tree
     return out
@@ -4376,6 +4652,7 @@ def main() -> int:
     harness = phase_harness(dev)
     model = phase_model(dev)
     families = phase_model_families(dev)
+    recurrent = phase_recurrent_families(dev)
     # run_path has already required a launch on every path that runs a
     # hand kernel
     kernels["uts_expand"]["launches_by_path"] = uts["launches"]
@@ -4419,7 +4696,8 @@ def main() -> int:
     # global layer at 32k, and deepseek-v3's MLA layer, zero-padded (its
     # bound on the unpadded work)
     flash = kernels["flash_attention_fwd"]
-    flash["launches_by_path"].update(families["launches"])
+    flash["launches_by_path"].update(
+        families["launches"]["flash_attention_fwd"])
     for key, rec in (("moe_layer", families[MOE_ARCH]["flash_global_layer"]),
                      ("mla_layer", families[MLA_ARCH]["flash_mla_layer"])):
         flash[key] = {k: rec[k] for k in (
@@ -4429,6 +4707,29 @@ def main() -> int:
         flash["max_abs_err"] = max(flash["max_abs_err"], rec["max_abs_err"])
         flash["max_abs_err_float32"] = max(flash["max_abs_err_float32"],
                                            rec["float32"]["max_abs_err"])
+    # and on jamba's attention layer at 32k (32 heads on 8 KV heads, D 128)
+    jamba_flash = recurrent[JAMBA_ARCH]["flash_attention_layer"]
+    flash["jamba_layer"] = {k: jamba_flash[k] for k in (
+        "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err", "launches")}
+    flash["max_abs_err"] = max(flash["max_abs_err"],
+                               jamba_flash["max_abs_err"])
+    flash["max_abs_err_float32"] = max(flash["max_abs_err_float32"],
+                                       jamba_flash["float32"]["max_abs_err"])
+    flash["launches_by_path"].update(
+        recurrent["launches"]["flash_attention_fwd"])
+    # the scan kernels, measured on the prefill's own operands: one layer of
+    # rwkv6-1.6b (wkv6) and one Mamba layer of jamba (selective_scan)
+    for name, arch, key in (("wkv6", RWKV_ARCH, "wkv6_layer"),
+                            ("selective_scan", JAMBA_ARCH,
+                             "selective_scan_layer")):
+        k = recurrent[arch][key]
+        kernels[name] = {
+            "matched": True, "launches_by_path": {
+                **families["launches"][name], **recurrent["launches"][name]},
+            **{x: k[x] for x in ("max_abs_err", "bit_equal", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms",
+                                 "shape")}}
     # the chaos and harness phases' paths, each with the launches of the
     # kernels it runs (a harness path that runs no kernel records none)
     for phase in (chaos, harness):
@@ -4446,6 +4747,7 @@ def main() -> int:
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
                | {x: k[x] for x in ("local_layer", "moe_layer", "mla_layer",
+                                    "jamba_layer", "bit_equal",
                                     "full_iteration_ms",
                                     "bound_dwell_sum_ms", "in_set_main_path",
                                     "bound_loose_ms", "levels",
@@ -4460,6 +4762,7 @@ def main() -> int:
               "flash_fixed_shapes": flash_fixed, "uts": uts, "ms": ms,
               "ms_paper_size": paper, "bc": bc, "chaos": chaos,
               "harness": harness, "model": model, "families": families,
+              "recurrent": recurrent,
               "leftover_processes_stopped": leftover}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -2,9 +2,8 @@
 
 ``paper_workloads`` holds the paper's UTS, Mariani-Silver and BC rows.  The
 architecture registry (``--arch <id>``) is the counterpart of
-``repro.configs``: the same ids in the same order, of which the port
-carries the configs it can run so far.  An id whose config is not ported
-yet raises ``KeyError`` that names ``ROADMAP.md``.
+``repro.configs``: the same ids in the same order, each config a copy of
+the reference's with only its imports changed.
 """
 from __future__ import annotations
 
@@ -13,9 +12,8 @@ from typing import Dict, List
 
 from .shapes import SHAPES, ShapeSpec, cell_applicable
 
-#: every arch id of the reference registry -> the port's module, or None
-#: where that config (and the model blocks it needs) is not ported yet
-_MODULES: Dict[str, "str | None"] = {
+#: every arch id of the reference registry -> the port's module
+_MODULES: Dict[str, str] = {
     "gemma3-1b": "gemma3_1b",
     "glm4-9b": "glm4_9b",
     "chatglm3-6b": "chatglm3_6b",
@@ -23,8 +21,8 @@ _MODULES: Dict[str, "str | None"] = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "musicgen-medium": "musicgen_medium",
-    "rwkv6-1.6b": None,
-    "jamba-v0.1-52b": None,
+    "rwkv6-1.6b": "rwkv6_1_6b",
+    "jamba-v0.1-52b": "jamba_v01_52b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
 }
 
@@ -34,12 +32,7 @@ ARCH_IDS: List[str] = list(_MODULES)
 def _module(arch: str):
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    name = _MODULES[arch]
-    if name is None:
-        raise KeyError(
-            f"arch {arch!r} is not ported to repro_torch yet (see ROADMAP.md, "
-            f"queue 1); ported: {[a for a, m in _MODULES.items() if m]}")
-    return importlib.import_module(f"{__name__}.{name}")
+    return importlib.import_module(f"{__name__}.{_MODULES[arch]}")
 
 
 def get_config(arch: str):

@@ -130,12 +130,14 @@ def _ensure_registered() -> None:
     # Kernel packages self-register at import; pull the shipped ops in
     # for callers that touch the registry before importing either.
     if {"uts_hash", "mandelbrot", "flash_attention_fwd", "bc_forward_level",
-            "bc_backward_level"} <= _REGISTRY.keys():
+            "bc_backward_level", "selective_scan", "wkv6"} <= _REGISTRY.keys():
         return
     from .uts_hash import ops as _u      # noqa: F401
     from .mandelbrot import ops as _m    # noqa: F401
     from .flash_attention import ops as _f  # noqa: F401
     from .bc import ops as _b            # noqa: F401
+    from .selective_scan import ops as _s  # noqa: F401
+    from .wkv6 import ops as _w          # noqa: F401
 
 
 def get_kernel(name: str) -> KernelOp:

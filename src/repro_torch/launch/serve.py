@@ -59,6 +59,11 @@ class TorchEngine:
     ``PRNGKey(0)`` (the numbers differ; the shapes are the same).  Decoding always runs the full [n_slots] batch (inactive slots are
     masked by position), as the reference's jitted step does.  Prefill
     chunks are counted only, exactly as ``JaxEngine.prefill_chunk``.
+    A model with no attention layer (rwkv6) runs the same way.  A slot is
+    never reset: a recurrent layer's state (and its shifted input) goes
+    on from whatever ran in that slot before, the previous request's and
+    the idle steps' included, as in ``JaxEngine``, which also never resets
+    a slot.
     """
 
     def __init__(self, cfg, n_slots: int, max_seq: int, *,

@@ -1,28 +1,34 @@
 """Model assembly: init, forward, prefill and decode passes (PyTorch).
 
-Counterpart of ``repro.models.transformer`` for blocks with ``mixer`` in
-``{"attn", "mla"}`` and ``ffn`` in ``{"mlp", "moe"}`` (the dense families,
-deepseek-moe and deepseek-v3), and for the modality frontend stubs: with
-``cfg.frontend`` set, every pass takes precomputed ``batch["embeds"]``
-[B, S, D] (cast to the model dtype) instead of ``batch["tokens"]``.  The
+Counterpart of ``repro.models.transformer`` for every block of the
+reference: ``mixer`` in ``{"attn", "mla", "mamba", "rwkv6", "none"}`` and
+``ffn`` in ``{"mlp", "moe", "rwkv6_cmix", "none"}`` (the dense families,
+deepseek-moe, deepseek-v3, rwkv6 and the jamba hybrid), and for the
+modality frontend stubs: with ``cfg.frontend`` set, every pass takes
+precomputed ``batch["embeds"]`` [B, S, D] (cast to the model dtype)
+instead of ``batch["tokens"]``.  The
 reference stacks each stage's per-period parameters on a leading
 ``n_periods`` axis and scans over it; the port keeps the same names with
 that axis turned into a Python list, ``params[f"stage{si}"][period]
 [f"block{i}"]``, and runs the layers in a plain loop.  The cache mirrors
 it: ``cache[f"stage{si}"][period][f"block{i}"]["mixer"]`` is ``{"k", "v"}``
-for attention and ``{"c_kv", "k_pe"}`` for MLA.
+for attention, ``{"c_kv", "k_pe"}`` for MLA, ``{"conv", "ssm"}`` for Mamba
+and ``{"state", "x_prev"}`` for RWKV-6's time mix, whose channel mix
+carries ``["ffn"] = {"x_prev"}``.  The recurrent caches hold no sequence
+axis: decode updates them in place, every step, for every slot.
 
 Inference only: ``forward`` has no remat and no loss.  Prefill attention
 (and MLA's expanded form) runs the hand-written flash kernel on CUDA
-tensors (``backend="ref"`` forces the plain version, to compare the two
-on the card).  A MoE block runs ``moe_block_local`` on one device plus
-the shared experts, as the reference does without a ``ShardCtx``; its
-aux loss is summed over the layers in ``forward``.  With ``cfg.mtp_depth``
+tensors, Mamba's recurrence the selective-scan kernel and RWKV-6's the
+WKV kernel, in prefill and in decode (``backend="ref"`` forces the plain
+versions, to compare the two on the card).  A MoE block runs
+``moe_block_local`` on one device plus the shared experts, as the
+reference does without a ``ShardCtx``; its aux loss is summed over the
+layers in ``forward``.  With ``cfg.mtp_depth``
 ``init_params`` builds the reference's ``params["mtp"]`` head; only the
 training loss reads it, so serving carries it and never runs it.
-``mamba``, ``rwkv6``, ``rwkv6_cmix``, ``ShardCtx`` and the MoE mesh path
-are not ported yet and raise ``NotImplementedError`` naming
-``ROADMAP.md``.
+``ShardCtx`` and the MoE mesh path are not ported yet and raise
+``NotImplementedError`` naming ``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -36,15 +42,21 @@ from .attention import (attention_decode, attention_prefill,
 from .config import BlockSpec, ModelConfig
 from .layers import (dense, embed, init_dense, init_embedding, init_mlp,
                      init_rms_norm, mlp_block, rms_norm, unembed)
+from .mamba import (init_mamba, init_mamba_cache, mamba_decode,
+                    mamba_prefill, mamba_train)
 from .mla import init_mla, init_mla_cache, mla_decode, mla_prefill, mla_train
 from .moe import init_moe, moe_block_local, shared_expert_mlp
+from .rwkv6 import (init_rwkv_cmix, init_rwkv_cmix_cache, init_rwkv_tmix,
+                    init_rwkv_tmix_cache, rwkv_cmix_decode,
+                    rwkv_cmix_prefill, rwkv_cmix_train, rwkv_tmix_decode,
+                    rwkv_tmix_prefill, rwkv_tmix_train)
 
 __all__ = ["ShardCtx", "init_params", "forward", "prefill", "decode_step",
            "init_cache"]
 
 _NOT_PORTED = "not ported to repro_torch yet (ROADMAP.md, queue 1)"
-_MIXERS = ("attn", "mla", "none")
-_FFNS = ("mlp", "moe", "none")
+_MIXERS = ("attn", "mla", "mamba", "rwkv6", "none")
+_FFNS = ("mlp", "moe", "rwkv6_cmix", "none")
 
 
 class ShardCtx:
@@ -96,12 +108,18 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
         p["mixer"] = init_attention(gen, d, _attn_cfg(cfg, spec), dt, device)
     elif spec.mixer == "mla":
         p["mixer"] = init_mla(gen, d, cfg.mla, dt, device)
+    elif spec.mixer == "mamba":
+        p["mixer"] = init_mamba(gen, d, cfg.mamba, dt, device)
+    elif spec.mixer == "rwkv6":
+        p["mixer"] = init_rwkv_tmix(gen, d, cfg.rwkv_head_size, dt, device)
     if spec.ffn != "none":
         p["norm2"] = init_rms_norm(d, device)
     if spec.ffn == "mlp":
         p["ffn"] = init_mlp(gen, d, cfg.d_ff, cfg.act, dt, device)
     elif spec.ffn == "moe":
         p["ffn"] = init_moe(gen, d, cfg.moe, dt, device)
+    elif spec.ffn == "rwkv6_cmix":
+        p["ffn"] = init_rwkv_cmix(gen, d, cfg.d_ff, dt, device)
     return p
 
 
@@ -181,6 +199,8 @@ def _ffn(cfg: ModelConfig, spec: BlockSpec, p: dict, x: torch.Tensor
     h = rms_norm(p["norm2"], x, cfg.norm_eps)
     if spec.ffn == "mlp":
         return x + mlp_block(p["ffn"], h, cfg.act), None
+    if spec.ffn == "rwkv6_cmix":
+        return x + rwkv_cmix_train(p["ffn"], h), None
     h, aux = _apply_moe(cfg, p["ffn"], h)
     return x + h, aux
 
@@ -202,9 +222,13 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             if spec.mixer == "attn":
                 h = attention_train(p["mixer"], h, positions,
                                     _attn_cfg(cfg, spec))
-            else:
+            elif spec.mixer == "mla":
                 h = mla_train(p["mixer"], h, positions, cfg.mla,
                               eps=cfg.norm_eps)
+            elif spec.mixer == "mamba":
+                h = mamba_train(p["mixer"], h, cfg.mamba)
+            else:
+                h = rwkv_tmix_train(p["mixer"], h, cfg.rwkv_head_size)
             x = x + h
         x, aux = _ffn(cfg, spec, p, x)
         if aux is not None:
@@ -217,18 +241,29 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
 def _init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
                       max_seq: int, dt: torch.dtype,
                       device: torch.device) -> dict:
+    c: Dict[str, Any] = {}
     if spec.mixer == "attn":
-        return {"mixer": init_kv_cache(batch, max_seq, _attn_cfg(cfg, spec),
-                                       dt, device)}
-    if spec.mixer == "mla":
-        return {"mixer": init_mla_cache(batch, max_seq, cfg.mla, dt, device)}
-    return {}
+        c["mixer"] = init_kv_cache(batch, max_seq, _attn_cfg(cfg, spec), dt,
+                                   device)
+    elif spec.mixer == "mla":
+        c["mixer"] = init_mla_cache(batch, max_seq, cfg.mla, dt, device)
+    elif spec.mixer == "mamba":
+        c["mixer"] = init_mamba_cache(batch, cfg.d_model, cfg.mamba, dt,
+                                      device)
+    elif spec.mixer == "rwkv6":
+        c["mixer"] = init_rwkv_tmix_cache(batch, cfg.d_model,
+                                          cfg.rwkv_head_size, dt, device)
+    if spec.ffn == "rwkv6_cmix":
+        c["ffn"] = init_rwkv_cmix_cache(batch, cfg.d_model, dt, device)
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device: DeviceLike = None) -> dict:
     """Zeroed decode cache: ``{"mixer": {"k", "v"}}`` per attention layer,
-    ``{"mixer": {"c_kv", "k_pe"}}`` per MLA layer."""
+    ``{"mixer": {"c_kv", "k_pe"}}`` per MLA layer, ``{"mixer": {"conv",
+    "ssm"}}`` per Mamba layer, ``{"mixer": {"state", "x_prev"}, "ffn":
+    {"x_prev"}}`` per RWKV-6 layer."""
     _check(cfg)
     device = resolve_device(device)
     dt = _dtype(cfg)
@@ -264,12 +299,24 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
                         h, c["mixer"] = attention_prefill(
                             p["mixer"], h, positions, _attn_cfg(cfg, spec),
                             backend=backend)
-                    else:
+                    elif spec.mixer == "mla":
                         h, c["mixer"] = mla_prefill(
                             p["mixer"], h, positions, cfg.mla,
                             eps=cfg.norm_eps, backend=backend)
+                    elif spec.mixer == "mamba":
+                        h, c["mixer"] = mamba_prefill(
+                            p["mixer"], h, cfg.mamba, backend=backend)
+                    else:
+                        h, c["mixer"] = rwkv_tmix_prefill(
+                            p["mixer"], h, cfg.rwkv_head_size,
+                            backend=backend)
                     x = x + h
-                x, _ = _ffn(cfg, spec, p, x)
+                if spec.ffn == "rwkv6_cmix":
+                    h, c["ffn"] = rwkv_cmix_prefill(
+                        p["ffn"], rms_norm(p["norm2"], x, cfg.norm_eps))
+                    x = x + h
+                else:
+                    x, _ = _ffn(cfg, spec, p, x)
                 pc[f"block{i}"] = c
             periods.append(pc)
         cache[f"stage{si}"] = periods
@@ -280,11 +327,14 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
 # -- decode -------------------------------------------------------------------
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict,
-                pos: torch.Tensor, *, ctx: Optional[ShardCtx] = None
+                pos: torch.Tensor, *, ctx: Optional[ShardCtx] = None,
+                backend: Optional[str] = None
                 ) -> Tuple[torch.Tensor, dict]:
     """One-token decode: batch {tokens [B, 1] | embeds [B, 1, D]}, pos [B].
     Writes the new cache rows (K and V, or MLA's latent) into ``cache`` in
-    place; returns (logits [B, V], cache)."""
+    place, and the recurrent layers' new states over their old ones;
+    returns (logits [B, V], cache).  ``backend="ref"`` runs the recurrent
+    layers' plain versions on the card (attention decode has no kernel)."""
     _check(cfg, ctx)
     x = _inputs(cfg, params, batch)
     for (spec, p), (_, c) in zip(_blocks(cfg, params), _blocks(cfg, cache)):
@@ -293,10 +343,21 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict,
             if spec.mixer == "attn":
                 h, _ = attention_decode(p["mixer"], c["mixer"], h, pos,
                                         _attn_cfg(cfg, spec))
-            else:
+            elif spec.mixer == "mla":
                 h, _ = mla_decode(p["mixer"], c["mixer"], h, pos, cfg.mla,
                                   eps=cfg.norm_eps)
+            elif spec.mixer == "mamba":
+                h, _ = mamba_decode(p["mixer"], c["mixer"], h, cfg.mamba,
+                                    backend=backend)
+            else:
+                h, _ = rwkv_tmix_decode(p["mixer"], c["mixer"], h,
+                                        cfg.rwkv_head_size, backend=backend)
             x = x + h
-        x, _ = _ffn(cfg, spec, p, x)
+        if spec.ffn == "rwkv6_cmix":
+            h, _ = rwkv_cmix_decode(p["ffn"], c["ffn"],
+                                    rms_norm(p["norm2"], x, cfg.norm_eps))
+            x = x + h
+        else:
+            x, _ = _ffn(cfg, spec, p, x)
     logits = _head(cfg, params, x)
     return logits[:, 0], cache

@@ -1,8 +1,9 @@
 """The port stands alone: it runs its main paths (UTS, Mariani-Silver,
 betweenness centrality, a master killed and resumed from its journal, a
 recorded run replayed and calibrated, open-loop traffic, a DAG, the
-examples, the model's prefill, decode and serving loop, and a MoE and an
-MLA prefill) with jax and the reference package unimportable, no source
+examples, the model's prefill, decode and serving loop, a MoE and an MLA
+prefill, and the recurrent families' prefill and decode, rwkv6's serving
+loop included) with jax and the reference package unimportable, no source
 file of it (nor ``chip_smoke.py``) imports either, and
 ``device=None`` never falls back to the CPU."""
 import json
@@ -98,6 +99,18 @@ for arch in ("deepseek-moe-16b", "deepseek-v3-671b"):
                      {"tokens": toks % fcfg.vocab_size})
     families[arch] = [list(fl.shape), sorted(fc["stage1"][0]["block0"]
                                              ["mixer"])]
+recurrent = {}
+for arch in ("rwkv6-1.6b", "jamba-v0.1-52b"):
+    rcfg = get_smoke_config(arch)
+    rp = init_params(rcfg, 0, device="cpu")
+    rl, rc = prefill(rcfg, rp, {"tokens": toks % rcfg.vocab_size})
+    rd, _ = decode_step(rcfg, rp, init_cache(rcfg, 1, 4, device="cpu"),
+                        {"tokens": toks[:, :1] % rcfg.vocab_size},
+                        torch.tensor([0]))
+    recurrent[arch] = [list(rl.shape), list(rd.shape),
+                       sorted(rc["stage0"][0]["block0"]["mixer"])]
+rwkv_served = serve("rwkv6-1.6b", smoke=True, n_requests=3, n_slots=2,
+                    max_seq=32, device="cpu")["requests"]
 import repro_torch.trace.replay, repro_torch.trace.calibrate
 from repro_torch.core import ProviderModel
 from repro_torch.dag import montage_dag
@@ -126,6 +139,7 @@ print(json.dumps({
     "bc_equal": bc_same, "bc_tasks": b.tasks,
     "prefill": list(logits.shape), "decode": list(step.shape),
     "served": rep["requests"], "families": families,
+    "recurrent": recurrent, "rwkv_served": rwkv_served,
     "replayed": [rec.tasks, rep_same.tasks], "fitted": fitted.name,
     "dag_nodes": dag.dag_nodes, "sim_completed": sim["completed"],
     "quickstart": qs["nodes"], "bc_example_tasks": bc_ex["tasks"],
@@ -152,6 +166,10 @@ def test_main_path_runs_without_jax_or_repro():
     assert res["families"] == {"deepseek-moe-16b": [[1, 256], ["k", "v"]],
                                "deepseek-v3-671b": [[1, 256],
                                                     ["c_kv", "k_pe"]]}
+    assert res["recurrent"] == {
+        "rwkv6-1.6b": [[1, 256], [1, 256], ["state", "x_prev"]],
+        "jamba-v0.1-52b": [[1, 256], [1, 256], ["conv", "ssm"]]}
+    assert res["rwkv_served"] == 3
     assert res["replayed"][0] == res["replayed"][1] > 0
     assert res["fitted"] == "fitted" and res["dag_nodes"] == 17
     assert res["sim_completed"] > 0

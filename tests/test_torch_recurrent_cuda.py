@@ -1,0 +1,139 @@
+"""The recurrent scan kernels against their plain versions on the card.
+
+``csrc/selective_scan.cu`` and ``csrc/wkv6.cu`` through their wrappers,
+against ``selective_scan_ref`` and ``wkv6_ref`` on the same CUDA tensors:
+the outputs and the final states bit for bit (every operation rounds once
+in both, and both sum in the same pairwise tree), at shapes with ragged
+chunks, a decode step (S = 1) and jamba's and rwkv6-1.6b's widths; and
+the two recurrent models' prefill and decode with kernel and with plain
+version, within 1e-4 of the largest logit (jamba's attention layer runs
+the flash kernel, which is not bit-equal to its plain version).
+This file imports no JAX, so it runs as it is on the machine with the
+card (``python -m pytest -m cuda tests/test_torch_recurrent_cuda.py``);
+here every test skips.
+"""
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.dispatch import launches
+from repro_torch.kernels.selective_scan.ops import selective_scan
+from repro_torch.kernels.wkv6.ops import wkv6
+from repro_torch.models import decode_step, init_cache, init_params, prefill
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _close(got, want, rel):
+    scale = float(want.abs().max())
+    assert scale > 0
+    gap = float((got - want).abs().max())
+    assert gap <= rel * scale, f"max |d| {gap} > {rel} * {scale}"
+
+
+def _twice(fn, state):
+    """``fn(state)`` through the kernel and the plain version, each on its
+    own copy of the state."""
+    s_k, s_r = state.clone(), state.clone()
+    before = sum(launches(n) for n in ("selective_scan", "wkv6"))
+    out_k, ret = fn(s_k, None)
+    assert ret is s_k
+    assert sum(launches(n) for n in ("selective_scan", "wkv6")) == before + 1
+    out_r, _ = fn(s_r, "ref")
+    torch.cuda.synchronize()
+    return out_k, out_r, s_k, s_r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,di,n", [(2, 37, 64, 4), (1, 70, 200, 8),
+                                      (3, 5, 130, 16), (1, 1, 8192, 16),
+                                      (1, 1000, 8192, 16)])
+def test_selective_scan_kernel_matches_plain_on_card(cuda_device, b, s, di,
+                                                     n):
+    g = torch.Generator(device=cuda_device).manual_seed(b * 1000 + s)
+    rand = lambda *shape: torch.randn(*shape, device=cuda_device, generator=g)
+    xi, bm, cm = rand(b, s, di), rand(b, s, n), rand(b, s, n)
+    dt = torch.nn.functional.softplus(rand(b, s, di) - 2)
+    a = -torch.arange(1, n + 1, device=cuda_device,
+                      dtype=torch.float32).repeat(di, 1)
+    yk, yr, sk, sr = _twice(lambda st, be: selective_scan(
+        xi, dt, bm, cm, a, st, backend=be), rand(b, di, n))
+    assert torch.equal(yk, yr) and torch.equal(sk, sr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hd", [(2, 37, 2, 16), (1, 70, 3, 64),
+                                      (3, 1, 32, 64), (1, 1000, 32, 64)])
+def test_wkv6_kernel_matches_plain_on_card(cuda_device, b, s, h, hd):
+    g = torch.Generator(device=cuda_device).manual_seed(b * 100 + s)
+    rand = lambda *shape: torch.randn(*shape, device=cuda_device, generator=g)
+    r, k, v = (rand(b, s, h, hd) * 0.5 for _ in range(3))
+    w = torch.exp(-torch.exp(rand(b, s, h, hd) - 2))
+    u = rand(h, hd) * 0.1
+    ok, orf, sk, sr = _twice(lambda st, be: wkv6(r, k, v, w, u, st,
+                                                 backend=be),
+                             rand(b, h, hd, hd))
+    assert torch.equal(ok, orf) and torch.equal(sk, sr)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_refuses_other_head_sizes(cuda_device):
+    ops = [torch.zeros(s, device=cuda_device)
+           for s in ((1, 2, 2, 32),) * 4 + ((2, 32), (1, 2, 32, 32))]
+    with pytest.raises(ValueError, match="head size 32"):
+        wkv6(*ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-v0.1-52b"])
+def test_recurrent_model_kernel_matches_plain_on_card(cuda_device, arch):
+    """The smoke config in float32 (capacity factor 16): prefill logits and
+    cache, then two decode steps, with the kernels and with the plain
+    versions forced."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=16.0))
+    params = init_params(cfg, 0, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 14), device=cuda_device,
+                         generator=g)
+    with torch.inference_mode():
+        lk, ck = prefill(cfg, params, {"tokens": toks[:, :12]})
+        lr, cr = prefill(cfg, params, {"tokens": toks[:, :12]},
+                         backend="ref")
+        _close(lk, lr, 1e-4)
+        arenas = []
+        for cache in (ck, cr):
+            arena = init_cache(cfg, 2, 14, device=cuda_device)
+            for dst, src in zip(_leaves(arena), _leaves(cache)):
+                if dst.shape == src.shape:
+                    dst.copy_(src)
+                else:
+                    dst[:, :12] = src
+            arenas.append(arena)
+        for t in (12, 13):
+            pos = torch.full((2,), t, device=cuda_device)
+            step = {"tokens": toks[:, t:t + 1]}
+            dk, _ = decode_step(cfg, params, arenas[0], step, pos)
+            dr, _ = decode_step(cfg, params, arenas[1], step, pos,
+                                backend="ref")
+            _close(dk, dr, 1e-4)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree

@@ -538,6 +538,14 @@ class BaseExecutor(Pool):
         if self._started:
             for _ in self._workers:
                 self._queue.put(None)
+            if wait:
+                # a worker still unwinding when the interpreter exits is
+                # killed inside torch's C++ frames, which aborts the
+                # process after its work is done
+                me = threading.current_thread()
+                for t in self._workers:
+                    if t is not me:
+                        t.join()
 
 @register_pool("local")
 class LocalExecutor(BaseExecutor):

@@ -29,12 +29,13 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-_PROBE = r"""
+#: run first in every probe: jax and the reference package cannot be
+#: imported
+_PRELUDE = r"""
 import json, sys
 
 
 class _Unimportable:
-    # jax and the reference package cannot be imported in this probe
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "repro"):
             raise ModuleNotFoundError(f"No module named {name!r}")
@@ -43,17 +44,33 @@ class _Unimportable:
 
 sys.meta_path.insert(0, _Unimportable())
 import numpy as np
+import torch
 from repro_torch.algorithms import (MSParams, RMATParams, UTSParams,
                                     bc_single_node, bc_spec, ms_spec,
                                     naive_render, rmat_graph, uts_sequential,
                                     uts_spec)
-from repro_torch.core import make_pool, run_irregular
+from repro_torch.core import TaskShape, make_pool, run_irregular
+shape = TaskShape(4, 20)
+toks = torch.arange(12)[None]
+res = {}
+"""
+
+#: run last in every probe: what it found, and what it imported
+_REPORT = r"""
+res["jax"] = sorted(k for k in sys.modules if k == "jax" or
+                    k.startswith("jax."))
+res["repro"] = sorted(k for k in sys.modules if k == "repro" or
+                      k.startswith("repro."))
+print(json.dumps(res))
+"""
+
+#: one probe a main path: its body, and what its result must hold
+_PROBES = {
+    "uts_wal_resume": (r"""
 import repro_torch.core.hybrid, repro_torch.core.simpool, repro_torch.runtime
 import repro_torch.trace.store
 from repro_torch.chaos import MasterKilledError, kill_master_after
-from repro_torch.core import TaskShape
-n = uts_sequential(UTSParams(max_depth=5), device="cpu")
-shape = TaskShape(4, 20)
+res["uts"] = uts_sequential(UTSParams(max_depth=5), device="cpu")
 killed = make_pool("sim", max_concurrency=4)
 try:
     run_irregular(killed, kill_master_after(
@@ -66,6 +83,10 @@ with make_pool("sim", max_concurrency=4) as pool:
                                            device="cpu"),
                             resume_from=killed.events, shape=shape)
 killed.shutdown()
+res["uts_resumed"] = resumed.output
+res["recovered"] = resumed.recovered_tasks
+""", lambda r: r["uts"] == r["uts_resumed"] == 416 and r["recovered"] > 0),
+    "elastic_uts_ms_bc": (r"""
 p = MSParams(width=32, height=32, max_dwell=32, initial_subdivision=2,
              max_depth=2)
 with make_pool("elastic", max_concurrency=4, invoke_overhead=0.0,
@@ -74,32 +95,47 @@ with make_pool("elastic", max_concurrency=4, invoke_overhead=0.0,
     m = run_irregular(pool, ms_spec(p, device="cpu"))
     b = run_irregular(pool, bc_spec(RMATParams(scale=5), n_tasks=4,
                                     device="cpu"))
-same = bool(np.array_equal(m.output["image"], naive_render(p, device="cpu")))
-bc_same = bool(np.array_equal(b.output, bc_single_node(
+res["uts_pool"] = r.output
+res["ms_equal"] = bool(np.array_equal(m.output["image"],
+                                      naive_render(p, device="cpu")))
+res["bc_equal"] = bool(np.array_equal(b.output, bc_single_node(
     rmat_graph(RMATParams(scale=5)), n_tasks=4, device="cpu")))
-import torch
+res["bc_tasks"] = b.tasks
+""", lambda r: (r["uts_pool"] == 416 and r["ms_equal"] and r["bc_equal"]
+                and r["bc_tasks"] == 4)),
+    "model_prefill_decode_serve": (r"""
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.serve import serve
 from repro_torch.models import decode_step, init_cache, init_params, prefill
 cfg = get_smoke_config("gemma3-1b")
 params = init_params(cfg, 0, device="cpu")
-toks = torch.arange(12)[None] % cfg.vocab_size
-logits, cache = prefill(cfg, params, {"tokens": toks})
+t = toks % cfg.vocab_size
+logits, cache = prefill(cfg, params, {"tokens": t})
 arena = init_cache(cfg, 1, 13, device="cpu")
 arena["stage0"][0]["block0"]["mixer"]["k"][:, :12] = \
     cache["stage0"][0]["block0"]["mixer"]["k"]
-step, _ = decode_step(cfg, params, arena, {"tokens": toks[:, -1:]},
+step, _ = decode_step(cfg, params, arena, {"tokens": t[:, -1:]},
                       torch.tensor([12]))
-rep = serve("gemma3-1b", smoke=True, n_requests=3, n_slots=2, max_seq=32,
-            device="cpu")
-families = {}
+res["prefill"] = list(logits.shape)
+res["decode"] = list(step.shape)
+res["served"] = serve("gemma3-1b", smoke=True, n_requests=3, n_slots=2,
+                      max_seq=32, device="cpu")["requests"]
+""", lambda r: r["prefill"] == r["decode"] == [1, 256] and r["served"] == 3),
+    "moe_mla_prefill": (r"""
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import init_params, prefill
 for arch in ("deepseek-moe-16b", "deepseek-v3-671b"):
     fcfg = get_smoke_config(arch)
     fl, fc = prefill(fcfg, init_params(fcfg, 0, device="cpu"),
                      {"tokens": toks % fcfg.vocab_size})
-    families[arch] = [list(fl.shape), sorted(fc["stage1"][0]["block0"]
-                                             ["mixer"])]
-recurrent = {}
+    res[arch] = [list(fl.shape), sorted(fc["stage1"][0]["block0"]
+                                        ["mixer"])]
+""", lambda r: (r["deepseek-moe-16b"] == [[1, 256], ["k", "v"]] and
+                r["deepseek-v3-671b"] == [[1, 256], ["c_kv", "k_pe"]])),
+    "recurrent_prefill_decode_serve": (r"""
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch.serve import serve
+from repro_torch.models import decode_step, init_cache, init_params, prefill
 for arch in ("rwkv6-1.6b", "jamba-v0.1-52b"):
     rcfg = get_smoke_config(arch)
     rp = init_params(rcfg, 0, device="cpu")
@@ -107,17 +143,21 @@ for arch in ("rwkv6-1.6b", "jamba-v0.1-52b"):
     rd, _ = decode_step(rcfg, rp, init_cache(rcfg, 1, 4, device="cpu"),
                         {"tokens": toks[:, :1] % rcfg.vocab_size},
                         torch.tensor([0]))
-    recurrent[arch] = [list(rl.shape), list(rd.shape),
-                       sorted(rc["stage0"][0]["block0"]["mixer"])]
-rwkv_served = serve("rwkv6-1.6b", smoke=True, n_requests=3, n_slots=2,
-                    max_seq=32, device="cpu")["requests"]
+    res[arch] = [list(rl.shape), list(rd.shape),
+                 sorted(rc["stage0"][0]["block0"]["mixer"])]
+res["rwkv_served"] = serve("rwkv6-1.6b", smoke=True, n_requests=3,
+                           n_slots=2, max_seq=32, device="cpu")["requests"]
+""", lambda r: (r["rwkv6-1.6b"] == [[1, 256], [1, 256], ["state", "x_prev"]]
+                and r["jamba-v0.1-52b"] == [[1, 256], [1, 256],
+                                            ["conv", "ssm"]]
+                and r["rwkv_served"] == 3)),
+    "replay_dag_traffic": (r"""
 import repro_torch.trace.replay, repro_torch.trace.calibrate
 from repro_torch.core import ProviderModel
 from repro_torch.dag import montage_dag
-from repro_torch.examples import betweenness_centrality, quickstart
-import repro_torch.examples.mandelbrot_render
 from repro_torch.launch.serve import serve_traffic_sim
-from repro_torch.trace import TraceStore, extract_workload, fit_provider, replay
+from repro_torch.trace import (TraceStore, extract_workload, fit_provider,
+                               replay)
 from repro_torch.traffic import generate_stream
 store = TraceStore(ring_size=64)
 with make_pool("sim", max_concurrency=8, provider=ProviderModel.aws_lambda(),
@@ -126,54 +166,40 @@ with make_pool("sim", max_concurrency=8, provider=ProviderModel.aws_lambda(),
                         shape=shape)
 rep_same = replay(extract_workload(store, provider=ProviderModel.aws_lambda()),
                   provider=ProviderModel.aws_lambda(), max_concurrency=8)
-fitted = fit_provider(store)
+res["replayed"] = [rec.tasks, rep_same.tasks]
+res["fitted"] = fit_provider(store).name
 store.close()
 with make_pool("sim", max_concurrency=8) as pool:
-    dag = run_irregular(pool, montage_dag(tiles=8))
-sim = serve_traffic_sim(rate=2.0, horizon_s=10.0)
-qs = quickstart.main("cpu", max_depth=5)
-bc_ex = betweenness_centrality.main("cpu", scale=5, n_tasks=2)
-print(json.dumps({
-    "uts": n, "uts_pool": r.output, "ms_equal": same,
-    "uts_resumed": resumed.output, "recovered": resumed.recovered_tasks,
-    "bc_equal": bc_same, "bc_tasks": b.tasks,
-    "prefill": list(logits.shape), "decode": list(step.shape),
-    "served": rep["requests"], "families": families,
-    "recurrent": recurrent, "rwkv_served": rwkv_served,
-    "replayed": [rec.tasks, rep_same.tasks], "fitted": fitted.name,
-    "dag_nodes": dag.dag_nodes, "sim_completed": sim["completed"],
-    "quickstart": qs["nodes"], "bc_example_tasks": bc_ex["tasks"],
-    "jax": sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")),
-    "repro": sorted(k for k in sys.modules
-                    if k == "repro" or k.startswith("repro.")),
-}))
-"""
+    res["dag_nodes"] = run_irregular(pool, montage_dag(tiles=8)).dag_nodes
+res["sim_completed"] = serve_traffic_sim(rate=2.0, horizon_s=10.0)[
+    "completed"]
+""", lambda r: (r["replayed"][0] == r["replayed"][1] > 0 and
+                r["fitted"] == "fitted" and r["dag_nodes"] == 17 and
+                r["sim_completed"] > 0)),
+    "examples": (r"""
+from repro_torch.examples import betweenness_centrality, quickstart
+import repro_torch.examples.mandelbrot_render
+res["quickstart"] = quickstart.main("cpu", max_depth=5)["nodes"]
+res["bc_example_tasks"] = betweenness_centrality.main(
+    "cpu", scale=5, n_tasks=2)["tasks"]
+""", lambda r: r["quickstart"] == 416 and r["bc_example_tasks"] == 2),
+}
 
 
-def test_main_path_runs_without_jax_or_repro():
+@pytest.mark.parametrize("path", sorted(_PROBES))
+def test_main_path_runs_without_jax_or_repro(path):
+    """Each main path in a process of its own: it must run, exit 0 (an
+    elastic pool's worker thread still alive at exit once aborted the
+    process after its work was done), hold its results, and import
+    neither jax nor the reference package."""
+    body, holds = _PROBES[path]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
-                         capture_output=True, text=True, timeout=300,
-                         cwd=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _PRELUDE + body + _REPORT],
+                         env=env, capture_output=True, text=True,
+                         timeout=300, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["uts"] == 416 and res["uts_pool"] == 416
-    assert res["uts_resumed"] == 416 and res["recovered"] > 0
-    assert res["ms_equal"]
-    assert res["bc_equal"] and res["bc_tasks"] == 4
-    assert res["prefill"] == res["decode"] == [1, 256]
-    assert res["served"] == 3
-    assert res["families"] == {"deepseek-moe-16b": [[1, 256], ["k", "v"]],
-                               "deepseek-v3-671b": [[1, 256],
-                                                    ["c_kv", "k_pe"]]}
-    assert res["recurrent"] == {
-        "rwkv6-1.6b": [[1, 256], [1, 256], ["state", "x_prev"]],
-        "jamba-v0.1-52b": [[1, 256], [1, 256], ["conv", "ssm"]]}
-    assert res["rwkv_served"] == 3
-    assert res["replayed"][0] == res["replayed"][1] > 0
-    assert res["fitted"] == "fitted" and res["dag_nodes"] == 17
-    assert res["sim_completed"] > 0
-    assert res["quickstart"] == 416 and res["bc_example_tasks"] == 2
+    assert holds(res), res
     assert res["jax"] == []
     assert res["repro"] == []
 

@@ -545,3 +545,18 @@ def test_speculative_clones_race_the_original_and_the_first_wins():
     assert pool.duplicates > 0
     assert snap["failed"] == 0 and snap["completed"] == snap["submitted"]
     assert snap["submitted"] == r.tasks + pool.duplicates
+
+
+@pytest.mark.parametrize("kind", ["elastic", "local"])
+def test_shutdown_joins_the_workers(kind):
+    """After ``shutdown()`` no worker thread is left: one still unwinding
+    when the interpreter exits is killed inside torch's C++ frames and
+    aborts the process after its work is done."""
+    pool = make_pool(kind, max_concurrency=6, invoke_overhead=0.0)
+    futures = [pool.submit(lambda x: torch.ones(4).sum().item() + x, i)
+               for i in range(24)]
+    assert sorted(f.result() for f in futures) == [4.0 + i for i in range(24)]
+    workers = list(pool._workers)
+    assert len(workers) == 6
+    pool.shutdown()
+    assert not any(t.is_alive() for t in workers)

@@ -4,7 +4,9 @@
 against ``selective_scan_ref`` and ``wkv6_ref`` on the same CUDA tensors:
 the outputs and the final states bit for bit (every operation rounds once
 in both, and both sum in the same pairwise tree), at shapes with ragged
-chunks, a decode step (S = 1) and jamba's and rwkv6-1.6b's widths; and
+chunks, heads split over several blocks, channels past a block's last
+full set of 32, decode steps (S = 1) at B 1 to 4, and jamba's and
+rwkv6-1.6b's widths; and
 the two recurrent models' prefill and decode with kernel and with plain
 version, within 1e-4 of the largest logit (jamba's attention layer runs
 the flash kernel, which is not bit-equal to its plain version).
@@ -52,9 +54,13 @@ def _twice(fn, state):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,di,n", [(2, 37, 64, 4), (1, 70, 200, 8),
-                                      (3, 5, 130, 16), (1, 1, 8192, 16),
-                                      (1, 1000, 8192, 16)])
+@pytest.mark.parametrize("b,s,di,n", [
+    (2, 37, 64, 4), (1, 70, 200, 8), (3, 5, 130, 16), (1, 1, 8192, 16),
+    (1, 1000, 8192, 16),
+    # channels past a block's 32 (a ragged edge inside a warp), N 4 and 8
+    # with ragged chunks, decode steps at B > 1
+    (2, 37, 200, 16), (1, 21, 8200, 16), (3, 19, 200, 4), (2, 45, 8200, 8),
+    (4, 1, 200, 16), (4, 1, 8192, 16), (2, 1, 8200, 4)])
 def test_selective_scan_kernel_matches_plain_on_card(cuda_device, b, s, di,
                                                      n):
     g = torch.Generator(device=cuda_device).manual_seed(b * 1000 + s)
@@ -69,8 +75,11 @@ def test_selective_scan_kernel_matches_plain_on_card(cuda_device, b, s, di,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,hd", [(2, 37, 2, 16), (1, 70, 3, 64),
-                                      (3, 1, 32, 64), (1, 1000, 32, 64)])
+@pytest.mark.parametrize("b,s,h,hd", [
+    (2, 37, 2, 16), (1, 70, 3, 64), (3, 1, 32, 64), (1, 1000, 32, 64),
+    # heads split over blocks at B > 1, ragged chunks, decode steps
+    (3, 21, 5, 64), (4, 50, 3, 16), (2, 17, 32, 64), (4, 1, 32, 64),
+    (2, 1, 2, 16)])
 def test_wkv6_kernel_matches_plain_on_card(cuda_device, b, s, h, hd):
     g = torch.Generator(device=cuda_device).manual_seed(b * 100 + s)
     rand = lambda *shape: torch.randn(*shape, device=cuda_device, generator=g)
@@ -80,6 +89,39 @@ def test_wkv6_kernel_matches_plain_on_card(cuda_device, b, s, h, hd):
     ok, orf, sk, sr = _twice(lambda st, be: wkv6(r, k, v, w, u, st,
                                                  backend=be),
                              rand(b, h, hd, hd))
+    assert torch.equal(ok, orf) and torch.equal(sk, sr)
+
+
+def _unaligned(t):
+    """``t`` copied to a contiguous view 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["selective_scan", "wkv6"])
+def test_scan_kernels_on_unaligned_operands(cuda_device, name):
+    """Operands off a 16-byte boundary take the kernels' 4-byte staging
+    copies; they must give the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    rand = lambda *shape: torch.randn(*shape, device=cuda_device, generator=g)
+    if name == "selective_scan":
+        b, s, di, n = 2, 37, 200, 16
+        ops = [rand(b, s, di), torch.nn.functional.softplus(
+            rand(b, s, di) - 2), rand(b, s, n), rand(b, s, n),
+            -torch.arange(1, n + 1, device=cuda_device,
+                          dtype=torch.float32).repeat(di, 1)]
+        state, fn = rand(b, di, n), selective_scan
+    else:
+        b, s, h, hd = 2, 37, 3, 64
+        ops = [rand(b, s, h, hd) * 0.5 for _ in range(3)] + [
+            torch.exp(-torch.exp(rand(b, s, h, hd) - 2)), rand(h, hd) * 0.1]
+        state, fn = rand(b, h, hd, hd), wkv6
+    ops = [_unaligned(t) for t in ops]
+    ok, orf, sk, sr = _twice(lambda st, be: fn(*ops, st, backend=be), state)
     assert torch.equal(ok, orf) and torch.equal(sk, sr)
 
 

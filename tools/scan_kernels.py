@@ -1,22 +1,43 @@
 """The recurrent scan kernels alone on the card: build, check, time.
 
-    python tools/scan_kernels.py
+    python tools/scan_kernels.py [--checkout DIR] [--tag TAG]
 
-builds ``selective_scan`` and ``wkv6`` (``src/repro_torch/kernels/csrc``),
-prints what ``nvcc -Xptxas=-v`` reported (registers, shared memory,
-spills), holds each kernel against its plain version on random float32
-operands from a seed, outputs and final states bit for bit, at a small
-ragged shape and at 2,048 steps of the main path's width, then times each
-kernel (CUDA events, median of 3) at the main path's 32k layer shape:
-a jamba Mamba layer (B 1, S 32,768, Di 8,192, N 16) and an rwkv6-1.6b
-layer (B 1, S 32,768, 32 heads of 64), beside ``chip_smoke.scan_bound``.
-Needs a CUDA card and ``nvcc``; some 20 s with the build.
+builds ``selective_scan`` and ``wkv6`` (``src/repro_torch/kernels/csrc``
+of the repository, or of the checkout ``DIR``, e.g. an older commit
+unpacked with ``git archive``), prints what ``nvcc -Xptxas=-v`` reported
+for each instance of each kernel (registers, spills, shared memory), holds
+each kernel against its plain version on random float32 operands from a
+seed, outputs and final states bit for bit, at small ragged shapes, at a
+decode step and at 2,048 steps of the main path's width, then times each
+kernel at the main path's shapes:
+
+* the 32k prefill layer, by CUDA events (median of 5): a jamba
+  Mamba layer (B 1, S 32,768, Di 8,192, N 16) and an rwkv6-1.6b layer
+  (B 1, S 32,768, 32 heads of 64), beside ``chip_smoke.scan_bound``;
+* a decode step (S = 1) at B 1 and B 4, by the device time of each of 50
+  launches under ``torch.profiler`` (median; a host-timed loop would time
+  the wrapper's Python).
+
+The profiler's trace also gives each launch's grid and block, which are
+printed.  The results go to ``chiprun_out/scan_kernels[-TAG].json``.
+Needs a CUDA card and ``nvcc``; some 30 s with the build.
 """
+import argparse
+import json
+import re
+import statistics
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+ap = argparse.ArgumentParser()
+ap.add_argument("--checkout", type=Path, default=ROOT,
+                help="the checkout whose kernels to build, check and time")
+ap.add_argument("--tag", default="", help="suffix of the JSON report")
+args = ap.parse_args()
+CHECKOUT = args.checkout.resolve()
+REPS = 5  # CUDA-event timings of a 32k layer
+sys.path[:0] = [str(CHECKOUT), str(CHECKOUT / "src")]
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
@@ -26,12 +47,45 @@ from repro_torch.kernels.wkv6.ops import wkv6  # noqa: E402
 
 if not torch.cuda.is_available():
     sys.exit("tools/scan_kernels.py needs a CUDA card")
-cs.phase_environment()
+card = cs.phase_environment()
+print(f"[checkout] {CHECKOUT}")
 _build.build(["selective_scan", "wkv6"])
-for name in ("selective_scan", "wkv6"):
+report: dict = {"checkout": str(CHECKOUT), "card": card, "build": {}}
+
+
+def ptxas(name: str) -> list:
+    """Each kernel instance of ``name``'s library as ptxas reported it."""
+    out, cur = [], None
     for line in _build.compiler_report(name).splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {name}: {line.strip()}")
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"function": m.group(1), "template": [
+                int(x) for x in re.findall(r"Li(\d+)E", m.group(1))]}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("smem_bytes", r"(\d+) bytes smem"),
+                         ("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads")):
+            m = re.search(pat, line)
+            if m:
+                cur[key] = int(m.group(1))
+    return out
+
+
+for name in ("selective_scan", "wkv6"):
+    report["build"][name] = ptxas(name)
+    for inst in report["build"][name]:
+        args_ = ", ".join(map(str, inst["template"]))
+        print(f"[build] {name}<{args_}>: "
+              f"{inst.get('registers')} registers, "
+              f"{inst.get('smem_bytes', 0)} bytes shared, "
+              f"spill stores {inst.get('spill_stores')} loads "
+              f"{inst.get('spill_loads')} bytes, stack "
+              f"{inst.get('stack_bytes')} bytes")
 dev = torch.device("cuda", 0)
 gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -53,26 +107,91 @@ def wkv_operands(b, s, h, hd):
             rand(h, hd) * 0.1, rand(b, h, hd, hd))
 
 
+def unaligned(t):
+    """``t`` copied to a contiguous view 4 bytes past a 16-byte boundary,
+    where the kernels stage with 4-byte copies."""
+    buf = torch.empty(t.numel() + 1, device=dev)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def profiled(fn, kernel: str, n: int = 50) -> dict:
+    """``n`` launches of ``fn`` under the profiler: the median device time
+    of the kernel whose name holds ``kernel``, and its grid and block."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    path = CHECKOUT / "build" / "scan_kernels_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "kernel" and kernel in e.get("name", "")]
+    path.unlink()
+    if not events:
+        raise AssertionError(f"the profiler saw no {kernel} launch")
+    a = events[0].get("args", {})
+    return {"device_ms": statistics.median(e["dur"] for e in events) / 1e3,
+            "profiled_launches": len(events),
+            "grid": a.get("grid"), "block": a.get("block"),
+            "registers_per_thread": a.get("registers per thread"),
+            "shared_memory": a.get("shared memory")}
+
+
 cases = (("selective_scan", selective_scan, scan_operands,
-          ((2, 37, 200, 8), (1, 2048, 8192, 16)), (1, 32768, 8192, 16)),
+          ((2, 37, 200, 8), (3, 19, 200, 4), (4, 1, 8200, 16),
+           (1, 2048, 8192, 16)), (1, 32768, 8192, 16), (8192, 16)),
          ("wkv6", wkv6, wkv_operands,
-          ((2, 37, 3, 16), (1, 2048, 32, 64)), (1, 32768, 32, 64)))
-for name, fn, operands, checks, layer in cases:
-    for shape in checks:
-        *ops, state = operands(*shape)
+          ((2, 37, 3, 16), (3, 21, 5, 64), (4, 1, 32, 64),
+           (1, 2048, 32, 64)), (1, 32768, 32, 64), (32, 64)))
+failed = []
+for name, fn, operands, checks, layer, width in cases:
+    rec = report[name] = {"checks": {}}
+    for shape in checks + (("unaligned",) + checks[0],):
+        *ops, state = operands(*shape[-4:])
+        if shape[0] == "unaligned":
+            ops = [unaligned(t) for t in ops]
         s_k, s_r = state.clone(), state.clone()
         out_k, _ = fn(*ops, s_k)
         out_r, _ = fn(*ops, s_r, backend="ref")
         torch.cuda.synchronize()
         same = torch.equal(out_k, out_r) and torch.equal(s_k, s_r)
+        rec["checks"][str(shape)] = same
         print(f"[check] {name} {shape}: bit-equal to the plain version "
               f"{same}")
         if not same:
-            sys.exit(f"{name} {shape}: the kernel differs from its plain "
-                     f"version")
-    args = operands(*layer)
-    *ops, state = args
-    ms = cs.cuda_time_ms(lambda: fn(*ops, state), reps=3)
-    b_ms, b_by = cs.scan_bound(name, args)
-    print(f"[time] {name} {layer}: {ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}), {ms / b_ms:.1f}x")
+            failed.append(f"{name} {shape}")
+    for b, s in ((1, layer[1]), (1, 1), (4, 1)):
+        shape = (b, s) + width
+        ops_state = operands(*shape)
+        *ops, state = ops_state
+        b_ms, b_by = cs.scan_bound(name, ops_state)
+        prof = profiled(lambda: fn(*ops, state), f"{name}_kernel",
+                        n=5 if s > 1 else 50)
+        row = {"bound_ms": b_ms, "bound_by": b_by, **prof}
+        if s > 1:
+            row["ms"] = cs.cuda_time_ms(lambda: fn(*ops, state),
+                                        reps=REPS)
+        rec[str(shape)] = row
+        timed = (f"{row['ms']:.4f} ms (CUDA events, median of {REPS}),"
+                 f" " if "ms" in row else "")
+        print(f"[time] {name} {shape}: {timed}device "
+              f"{row['device_ms']:.4f} ms (profiler, median), bound "
+              f"{b_ms:.4f} ms ({b_by}), "
+              f"{row.get('ms', row['device_ms']) / b_ms:.1f}x; grid "
+              f"{row['grid']}, block {row['block']}, registers "
+              f"{row['registers_per_thread']}, shared "
+              f"{row['shared_memory']}")
+        del ops, state, ops_state
+        torch.cuda.empty_cache()
+tag = f"-{args.tag}" if args.tag else ""
+out = ROOT / "chiprun_out" / f"scan_kernels{tag}.json"
+out.parent.mkdir(parents=True, exist_ok=True)
+out.write_text(json.dumps(report, indent=1))
+print(f"[done] report in {out}")
+if failed:
+    sys.exit(f"kernels differ from their plain versions: {failed}")

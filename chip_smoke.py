@@ -177,7 +177,29 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    own operands, and the whole model at S = 4096 with the MoE routing
    replayed, as in phase 11; every path of this phase counts the
    launches of all three kernels it may run;
-13. every process the run started is stopped and waited for (the
+13. training (``phase_training``): the flash backward kernel
+   (``csrc/flash_attention_bwd.cu``) against autograd over its plain
+   version on the operands ``FlashAttention.backward`` gave it while
+   gemma3-1b's whole-model gradient ran (a global and a local layer, B 1,
+   S 4,096), on deepseek-moe-16b's layer (16 heads, D 128) and on one
+   float32 case with a window and a soft-cap: dQ, dK, dV within
+   ``FLASH_BWD_TOL`` of their largest values as given and within 1e-4
+   cast to float32, two launches bit-equal, kernel, plain and SDPA-backward
+   times (median of 5) and the bound; the forward's output bit-equal with
+   the log-sum-exp on; ``loss_fn`` and every gradient of gemma3-1b at full
+   width and depth, kernels against ``backend="ref"`` (loss 1e-3, norm
+   1 %, leaf cosine 0.99); gemma3-1b trained at full width and depth on 2
+   x 4,096 tokens (``train_4k``'s batch cut from 256; 4 does not fit):
+   run (a) steps 0-5 of a 12-step schedule with a checkpoint at 6
+   (restored to the host bit-equal), run (b) resumed there to 12, run (c)
+   unbroken; (b)'s losses must be (c)'s bit for bit, the loss must fall,
+   every step launch 52 forward and 26 backward flash kernels; step time,
+   tokens/s, ``mfu``, peak memory, two steps under the profiler,
+   checkpoint bytes and seconds; deepseek-moe-16b cut to 2 layers trained
+   3 steps (finite, ``router_aux``, every expert that got pairs a finite
+   non-zero gradient); the ``train_lm`` twin at its defaults (the loss
+   falls); rwkv6's and jamba's training refused on the card;
+14. every process the run started is stopped and waited for (the
    resource tracker of the BC oracle's spawn pool, which would outlive
    the script, and any other left over, listed in the report), then one
    JSON line with every kernel's launches on each main path, error,
@@ -310,6 +332,10 @@ KERNEL_SOURCES = {
     "bc_backward_level": ("src/repro_torch/kernels/csrc/bc_level.cu",
                           "none (XLA dots, src/repro/algorithms/"
                           "betweenness.py:107, :124)"),
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/"
+                            "flash_attention_bwd.cu",
+                            "none (XLA autodiff of attention_train, "
+                            "src/repro/models/attention.py:191)"),
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "none (XLA lax.scan, src/repro/models/mamba.py:93)"),
     "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
@@ -3950,7 +3976,8 @@ def family_inputs(cfg, n: int, dev, seed: int):
 
 
 #: the kernels whose launches every path of the model phases counts
-MODEL_KERNELS = ("flash_attention_fwd", "selective_scan", "wkv6")
+MODEL_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
+                 "selective_scan", "wkv6")
 
 
 def counted_path(name: str, fn, want: dict, paths: dict) -> tuple:
@@ -4402,6 +4429,538 @@ def phase_recurrent_families(dev) -> dict:
     return out
 
 
+# -- training: the flash backward kernel, gradients, a kill and a resume ------
+
+#: gemma3-1b training at train_4k's sequence; the batch cut from 256 to 2:
+#: at 4 the float32 logits and their gradient (4 x 4,096 x 262,144 x 4 bytes
+#: = 17.2 GB each) do not fit beside the weights and AdamW's float32 moments
+#: in 80 GB (a batch of 4 ran out of memory on the H100)
+TRAIN_S, TRAIN_B = 4096, 2
+#: the unbroken run's steps, and the step the first run is killed at
+TRAIN_STEPS, KILL_AT = 12, 6
+#: AdamW's defaults except the schedule's horizon (train()'s: total_steps =
+#: TRAIN_STEPS, warmup max(1, 12 // 20) = 1) and this peak rate, the
+#: reference driver's default
+TRAIN_LR = 3e-4
+TRAIN_DIR = ROOT / "build" / "train_ckpt"
+#: the backward kernel against its plain version, each of dQ, dK, dV by its
+#: largest |value|: where bf16 is among the operands the plain version
+#: rounds p and dP to bf16 before its products (the kernel keeps them in
+#: float32) and dP - Delta cancels, so one bf16 rounding (2**-8) grows a few
+#: times; the same operands cast to float32, through the kernel's float32
+#: build, within 1e-4 (float32 sums in other orders)
+FLASH_BWD_TOL, FLASH_BWD_F32_TOL = 2**-5, 1e-4
+#: the whole model's gradient, kernels against plain versions (bf16 weights,
+#: 26 layers, each rounding its attention output and gradients at other
+#: places): the loss within 1e-3 relative, the global gradient norm within
+#: 1e-3, every leaf's gradient at a cosine of at least 0.999 (a sound run
+#: read 1.7e-4 and 0.99967; tools/grad_gate_control.py reads a backward
+#: that rounds p and dS to bf16 against the same limits)
+GRAD_LOSS_RTOL, GRAD_NORM_RTOL, GRAD_MIN_COS = 1e-3, 1e-3, 0.999
+#: deepseek-moe-16b at full width, 28 layers cut to its two stages' first
+#: (one dense layer, one MoE layer), batch 1 of TRAIN_S, 3 steps
+MOE_TRAIN_STEPS = 3
+
+
+def flash_bwd_bound(q2, k2, v2, causal: bool, window) -> tuple:
+    """Least card time for one backward op: the five products over the live
+    pairs (q.k^T again, dV = p^T dO, dP = dO v^T, dQ = dS k, dK = dS^T q:
+    2 * (3 Dk + 2 Dv) flops a pair) at the dense bf16 rate, against q, k,
+    v, o, dO and lse read and dq, dk, dv written once."""
+    bhg, sq, dk = q2.shape
+    skv, dv = v2.shape[1:]
+    pairs = bhg * live_pairs(sq, skv, causal, window)
+    flops = 2 * pairs * (3 * dk + 2 * dv)
+    t_ops = flops / PEAK_BF16_S * 1e3
+    n_bytes = 2 * (q2.numel() * q2.element_size()
+                   + k2.numel() * k2.element_size()
+                   + v2.numel() * v2.element_size()) \
+        + 2 * bhg * sq * dv * q2.element_size() + bhg * sq * 4
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", flops)
+
+
+def sdpa_backward_ms(q2, k2, v2, dout, causal: bool, window) -> float:
+    """The library yardstick: autograd through
+    ``scaled_dot_product_attention`` in bf16 (K and V repeated to the query
+    heads, as the forward's yardstick), its forward's time taken off."""
+    import torch
+    groups = q2.shape[0] // k2.shape[0]
+    lq, lk, lv = (t.to(torch.bfloat16).repeat_interleave(
+        1 if t is q2 else groups, dim=0).requires_grad_()
+        for t in (q2, k2, v2))
+    g = dout.to(torch.bfloat16)
+
+    def both():
+        out = sdpa(lq, lk, lv, causal, window)
+        torch.autograd.grad(out, (lq, lk, lv), g.view(out.shape))
+
+    def fwd():
+        with torch.no_grad():
+            sdpa(lq, lk, lv, causal, window)
+    return cuda_time_ms(both, reps=5) - cuda_time_ms(fwd, reps=5)
+
+
+def _bwd_rel_err(got, want) -> list:
+    return [float((a.float() - b.float()).abs().max()
+                  / b.float().abs().max().clamp_min(1e-30))
+            for a, b in zip(got, want)]
+
+
+def check_flash_bwd(args, static, label: str, time_it: bool = True) -> dict:
+    """The backward kernel against autograd over the plain version on these
+    operands (q2, k2, v2, o, dO, lse: what ``FlashAttention.backward`` gave
+    it), as given and cast to float32; two launches bit-equal; with
+    ``time_it``, kernel, plain and SDPA times (median of 5) and the bound."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_ref
+    q2, k2, v2, o, dout, lse = args
+    kw = {k: static[k] for k in ("causal", "window", "softcap")}
+    got = flash_attention_bwd_cuda(*args, **kw)
+    again = flash_attention_bwd_cuda(*args, **kw)
+    want = flash_attention_bwd_ref(*args, **kw)
+    torch.cuda.synchronize()
+    deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+    bf16 = torch.bfloat16 in (q2.dtype, v2.dtype)
+    err = _bwd_rel_err(got, want)
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in got)
+    del got, again, want
+    f = [t.float() for t in (q2, k2, v2)]
+    o32, lse32 = flash_attention_cuda(*f, return_lse=True, **kw)
+    err32 = _bwd_rel_err(
+        flash_attention_bwd_cuda(*f, o32, dout.float(), lse32, **kw),
+        flash_attention_bwd_ref(*f, o32, dout.float(), lse32, **kw))
+    del f, o32, lse32
+    rec = {"label": label, "shape": f"q {list(q2.shape)}, k/v "
+           f"{list(k2.shape)}, {str(q2.dtype)[6:]} q/k, "
+           f"{str(v2.dtype)[6:]} v", **kw,
+           "rel_err_dq_dk_dv": err, "rel_err_float32": err32,
+           "tolerance": FLASH_BWD_TOL if bf16 else FLASH_BWD_F32_TOL,
+           "tolerance_float32": FLASH_BWD_F32_TOL,
+           "max_abs_err": max(err), "deterministic": deterministic}
+    log(f"[train] flash bwd {label}: {rec['shape']}: dQ, dK, dV max |err| "
+        f"/ max |value| {', '.join(f'{e:.3e}' for e in err)} (allowed "
+        f"{rec['tolerance']:.3e}); in float32 "
+        f"{', '.join(f'{e:.3e}' for e in err32)} (allowed "
+        f"{FLASH_BWD_F32_TOL:.0e}); two launches bit-equal: {deterministic}")
+    if not (finite and max(err) <= rec["tolerance"]
+            and max(err32) <= FLASH_BWD_F32_TOL and deterministic):
+        raise AssertionError(f"flash_attention_bwd {label}: {rec}")
+    b_ms, b_by, flops = flash_bwd_bound(q2, k2, v2, kw["causal"],
+                                        kw["window"])
+    rec.update(bound_ms=b_ms, bound_by=b_by, flops=flops)
+    if time_it:
+        rec["ms"] = cuda_time_ms(
+            lambda: flash_attention_bwd_cuda(*args, **kw), reps=5)
+        rec["plain_ms"] = cuda_time_ms(
+            lambda: flash_attention_bwd_ref(*args, **kw), reps=5)
+        rec["library_ms"] = sdpa_backward_ms(q2, k2, v2, dout, kw["causal"],
+                                             kw["window"]) \
+            if kw["softcap"] is None else None
+        log(f"[train] flash bwd {label}: kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, SDPA backward "
+            f"{rec['library_ms']} ms, bound {b_ms:.4f} ms ({b_by})")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lse_leaves_o(args, static) -> bool:
+    """The forward kernel's output with the log-sum-exp on and off."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    kw = {k: static[k] for k in ("causal", "window", "softcap")}
+    on, _ = flash_attention_cuda(*args, return_lse=True, **kw)
+    off = flash_attention_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    return bool(torch.equal(on, off))
+
+
+def model_grads(cfg, params, batch, backend) -> tuple:
+    """(loss, {leaf name: gradient}) of ``loss_fn`` on the card."""
+    import torch
+    from repro_torch.models import loss_fn
+    named = list(_leaves(params))
+    for _, t in named:
+        t.requires_grad_(True)
+    loss, _ = loss_fn(cfg, params, batch, backend=backend)
+    grads = torch.autograd.grad(loss, [t for _, t in named],
+                                allow_unused=True)
+    out = {n: (g if g is not None else torch.zeros_like(t))
+           for (n, t), g in zip(named, grads)}
+    for _, t in named:
+        t.requires_grad_(False)
+    return float(loss.detach()), out
+
+
+def grad_gap(kernel: tuple, plain: tuple) -> dict:
+    """Two (loss, {leaf name: gradient}) results of ``model_grads``: the
+    loss's relative gap, the global gradient norms and their relative gap,
+    and the lowest cosine of a leaf's gradients."""
+    import torch
+    (loss_k, g_k), (loss_p, g_p) = kernel, plain
+    norm = lambda g: float(torch.sqrt(sum(t.float().square().sum()
+                                          for t in g.values())))
+    cos = {}
+    for n in g_k:
+        a, b = g_k[n].float().flatten(), g_p[n].float().flatten()
+        na, nb = float(a.norm()), float(b.norm())
+        cos[n] = 1.0 if na == nb == 0.0 else float(a @ b) / max(na * nb,
+                                                                1e-30)
+    worst = min(cos, key=cos.get)
+    rec = {"loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+           "grad_norm_kernel": norm(g_k), "grad_norm_plain": norm(g_p),
+           "min_cosine": cos[worst], "min_cosine_leaf": worst,
+           "leaves": len(cos)}
+    rec["grad_norm_rel_err"] = abs(rec["grad_norm_kernel"]
+                                   - rec["grad_norm_plain"]) \
+        / rec["grad_norm_plain"]
+    return rec
+
+
+def compare_grads(cfg, params, batch) -> dict:
+    """``loss_fn`` and its gradients with the kernels (flash forward and
+    backward) against the plain versions forced, on the same weights."""
+    rec = grad_gap(model_grads(cfg, params, batch, None),
+                   model_grads(cfg, params, batch, "ref"))
+    log(f"[train] whole-model gradient, kernels vs plain: loss "
+        f"{rec['loss_kernel']:.6f} vs {rec['loss_plain']:.6f} "
+        f"({rec['loss_rel_err']:.2e}, allowed {GRAD_LOSS_RTOL:.0e}); grad "
+        f"norm {rec['grad_norm_kernel']:.6f} vs {rec['grad_norm_plain']:.6f} "
+        f"({rec['grad_norm_rel_err']:.2e}, allowed {GRAD_NORM_RTOL}); lowest "
+        f"leaf cosine {rec['min_cosine']:.6f} ({rec['min_cosine_leaf']}; "
+        f"allowed >= {GRAD_MIN_COS}) over {rec['leaves']} leaves")
+    if not grad_gate_passes(rec):
+        raise AssertionError(f"whole-model gradient: {rec}")
+    return rec
+
+
+def grad_gate_passes(rec: dict) -> bool:
+    return (rec["loss_rel_err"] <= GRAD_LOSS_RTOL
+            and rec["grad_norm_rel_err"] <= GRAD_NORM_RTOL
+            and rec["min_cosine"] >= GRAD_MIN_COS)
+
+
+def train_flops(cfg, n_params: int, b: int, s: int) -> float:
+    """A training step's model flops: 6 N per token (N every parameter, the
+    tied table once, for the unembedding product) plus attention's live
+    pairs, 12 Dh flops a pair and query head (q.k^T and p.v forward, twice
+    that backward); recomputation (remat) not counted."""
+    total = 6.0 * n_params * b * s
+    for stage in cfg.stages:
+        for spec in stage.pattern:
+            a = spec.attn_override or cfg.attention
+            if spec.mixer == "attn":
+                total += stage.n_periods * b * a.n_heads * 12 * a.head_dim \
+                    * live_pairs(s, s, True, a.sliding_window)
+    return total
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def train_kill_resume(dev, paths: dict) -> dict:
+    """gemma3-1b at full width and depth: run (a) trains steps 0-5 of 12 and
+    checkpoints at 6; run (b) resumes there and trains 6-11; run (c) trains
+    0-11 unbroken.  Every step launches the forward kernel twice a layer
+    (remat) and the backward once.  Then steps 0-5 once more through
+    ``plan_cell``'s step, from the same weights, schedule and batches as
+    ``train``'s: every op is deterministic (the gates above show it), so
+    that state is the one (a) saved, and the checkpoint restored to the
+    host must equal it bit for bit.  Two more steps of it are profiled."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import restore_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.convert import _tensor
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import plan_cell
+    from repro_torch.launch.train import checkpoint_tree, train
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    cfg = get_config(ARCH)
+    per_step = {"flash_attention_fwd": 2 * cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers}
+    want = lambda n: {k: v * n for k, v in per_step.items()}
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    kw = dict(smoke=False, global_batch=TRAIN_B, seq_len=TRAIN_S,
+              peak_lr=TRAIN_LR, log_every=1, device=dev,
+              total_steps=TRAIN_STEPS)
+    rec: dict = {"batch": TRAIN_B, "seq": TRAIN_S, "peak_lr": TRAIN_LR,
+                 "reduced": {"global_batch": [256, TRAIN_B]}}
+    a, wall_a, _ = counted_path(f"{ARCH} train (a) steps 0-5", lambda: train(
+        ARCH, steps=KILL_AT, ckpt_dir=str(TRAIN_DIR / "a"),
+        ckpt_every=KILL_AT, **kw), want(KILL_AT), paths)
+    ck = TRAIN_DIR / "a" / f"step_{KILL_AT}"
+    rec["checkpoint_bytes"] = _dir_bytes(ck)
+    rec["save_s"] = a["save_s"]
+    log(f"[train] (a) {KILL_AT} steps in {wall_a:.3f} s; checkpoint "
+        f"{rec['checkpoint_bytes'] / 1e9:.3f} GB saved in {a['save_s']:.3f} "
+        f"s")
+    b, wall_b, _ = counted_path(f"{ARCH} train (b) resume, steps 6-11",
+                                lambda: train(ARCH, steps=TRAIN_STEPS,
+                                              ckpt_dir=str(TRAIN_DIR / "a"),
+                                              **kw),
+                                want(TRAIN_STEPS - KILL_AT), paths)
+    if (b["start_step"], b["steps"]) != (KILL_AT, TRAIN_STEPS - KILL_AT):
+        raise AssertionError(f"resume: started at {b['start_step']}, ran "
+                             f"{b['steps']} steps")
+    rec["restore_s"] = b["restore_s"]
+    torch.cuda.reset_peak_memory_stats()
+    c, wall_c, _ = counted_path(f"{ARCH} train (c) unbroken, steps 0-11",
+                                lambda: train(ARCH, steps=TRAIN_STEPS,
+                                              ckpt_dir=str(TRAIN_DIR / "c"),
+                                              **kw),
+                                want(TRAIN_STEPS), paths)
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    losses = {"a": a["losses"], "b": b["losses"], "c": c["losses"]}
+    rec["losses"] = losses
+    finite = all(l == l and abs(l) != float("inf")
+                 for run in losses.values() for _, l in run)
+    c_loss = dict(c["losses"])
+    resumed = [l for _, l in b["losses"]]
+    unbroken = [c_loss[s] for s, _ in b["losses"]]
+    rec["resume_max_abs_diff"] = max(abs(x - y) for x, y in
+                                     zip(resumed, unbroken))
+    rec["resume_bit_equal"] = resumed == unbroken
+    rec["first_steps_bit_equal"] = [l for _, l in a["losses"]] == \
+        [c_loss[s] for s, _ in a["losses"]]
+    steps_s = [t for s, t in c["step_s"] if s > 0]
+    rec["step_s_median"] = statistics.median(steps_s)
+    rec["tokens_per_s"] = TRAIN_B * TRAIN_S / rec["step_s_median"]
+    if not finite:
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not c_loss[TRAIN_STEPS - 1] < c_loss[0]:
+        raise AssertionError(f"the loss did not fall: {c['losses']}")
+    if not (rec["resume_bit_equal"] and rec["first_steps_bit_equal"]):
+        raise AssertionError(f"the resumed run is not the unbroken run: "
+                             f"{losses}")
+    # (a)'s state once more, against its checkpoint; train()'s schedule
+    opt_cfg = AdamWConfig(peak_lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+                          warmup_steps=max(1, TRAIN_STEPS // 20))
+    plan = plan_cell(cfg, ShapeSpec("train", TRAIN_S, TRAIN_B, "train"),
+                     opt_cfg=opt_cfg, device=dev)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                                  global_batch=TRAIN_B))
+    params = init_params(cfg, 0, device=dev)
+    opt = init_opt_state(params, opt_cfg)
+    for s in range(KILL_AT):
+        plan.step(params, opt, data.batch(s))
+    saved = checkpoint_tree(cfg, params, opt)
+    t0 = time.monotonic()
+    restored = restore_pytree(saved, str(ck), device="cpu")
+    rec["restore_to_host_s"] = time.monotonic() - t0
+    mismatched = [n for (n, s), (_, r) in zip(_leaves(saved), _leaves(restored))
+                  if not torch.equal(_tensor(s, torch.device("cpu")), r)]
+    rec["restored_bit_equal"] = not mismatched
+    del saved, restored
+    log(f"[train] checkpoint at step {KILL_AT} restored to the host in "
+        f"{rec['restore_to_host_s']:.3f} s, bit-equal to the state of "
+        f"{KILL_AT} steps replayed: {rec['restored_bit_equal']}")
+    if mismatched:
+        raise AssertionError(f"restored checkpoint differs: {mismatched[:5]}")
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    rec["model_flops_per_step"] = train_flops(cfg, n_params, TRAIN_B,
+                                              TRAIN_S)
+    rec["mfu"] = rec["model_flops_per_step"] / rec["step_s_median"] \
+        / PEAK_BF16_S
+    rec["n_params"] = n_params
+    rec["launches_per_step"] = per_step
+    log(f"[train] {ARCH} B={TRAIN_B} S={TRAIN_S}: losses (c) "
+        f"{[round(l, 4) for _, l in c['losses']]}; resumed steps 6-11 equal "
+        f"the unbroken run's bit for bit: {rec['resume_bit_equal']} (max "
+        f"|diff| {rec['resume_max_abs_diff']:.3e}); step {rec['step_s_median']:.4f} s "
+        f"(median, first excluded), {rec['tokens_per_s']:.1f} tokens/s, "
+        f"mfu {rec['mfu']:.4f} ({rec['model_flops_per_step']:.4e} flops a "
+        f"step), peak {rec['peak_memory_gb']:.2f} GB")
+
+    # where the step's time goes: two more steps under the profiler
+    def two_steps():
+        for s in (KILL_AT, KILL_AT + 1):
+            plan.step(params, opt, data.batch(s))
+    rec["profile"] = device_busy(two_steps, f"{ARCH} 2 train steps")
+    del params, opt, plan
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_moe(dev, paths: dict, tap) -> dict:
+    """deepseek-moe-16b at full width, cut to one dense and one MoE layer:
+    3 train steps, then the gradient of every expert that got pairs."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import batch_to, plan_cell
+    from repro_torch.models import Stage, init_params, loss_fn
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, stages=tuple(
+        Stage(1, st.pattern) for st in full.stages))
+    params = init_params(cfg, 0, device=dev)
+    opt_cfg = AdamWConfig(peak_lr=TRAIN_LR, total_steps=MOE_TRAIN_STEPS,
+                          warmup_steps=1)
+    opt = init_opt_state(params, opt_cfg)
+    plan = plan_cell(cfg, ShapeSpec("train", TRAIN_S, 1, "train"),
+                     opt_cfg=opt_cfg, device=dev)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                                  global_batch=1))
+    metrics = []
+
+    def steps():
+        for s in range(MOE_TRAIN_STEPS):
+            _, _, m = plan.step(params, opt, data.batch(s))
+            metrics.append({k: float(v) for k, v in m.items()})
+    with tap:
+        counted_path(f"{MOE_ARCH} train, 2 layers", steps, {
+            "flash_attention_fwd": 2 * cfg.n_layers * MOE_TRAIN_STEPS,
+            "flash_attention_bwd": cfg.n_layers * MOE_TRAIN_STEPS}, paths)
+    if not all("router_aux" in m and all(v == v and abs(v) != float("inf")
+                                         for v in m.values())
+               for m in metrics):
+        raise AssertionError(f"{MOE_ARCH} train metrics: {metrics}")
+    # every expert that got pairs gets a finite, non-zero gradient
+    moe_block = next(p["ffn"] for spec, p in _blocks_of(cfg, params)
+                     if spec.ffn == "moe")
+    experts = [moe_block[k] for k in ("gate", "up", "down")]
+    for t in experts:
+        t.requires_grad_(True)
+    with MoETap() as routing:
+        loss, _ = loss_fn(cfg, params, batch_to(data.batch(MOE_TRAIN_STEPS),
+                                                dev))
+        grads = torch.autograd.grad(loss, experts)
+    counts = MoETap._counts(routing.layers[0])
+    got = counts > 0
+    norms = torch.stack([g.float().flatten(1).norm(dim=1) for g in grads])
+    ok = bool(torch.isfinite(norms).all()) and \
+        bool((norms[:, got] > 0).all())
+    rec = {"metrics": metrics, "experts_with_pairs": int(got.sum()),
+           "experts": int(counts.numel()),
+           "min_grad_norm_with_pairs": float(norms[:, got].min()),
+           "reduced": {"n_layers": [full.n_layers, cfg.n_layers]}}
+    log(f"[train] {MOE_ARCH} 2 layers, {MOE_TRAIN_STEPS} steps: losses "
+        f"{[round(m['loss'], 4) for m in metrics]}, router_aux "
+        f"{[round(m['router_aux'], 4) for m in metrics]}; "
+        f"{rec['experts_with_pairs']} of {rec['experts']} experts got pairs, "
+        f"their smallest gradient norm {rec['min_grad_norm_with_pairs']:.3e}")
+    if not ok:
+        raise AssertionError(f"{MOE_ARCH}: expert gradients {rec}")
+    del params, opt, plan, grads
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _blocks_of(cfg, params):
+    for si, stage in enumerate(cfg.stages):
+        for period in params[f"stage{si}"]:
+            for i, spec in enumerate(stage.pattern):
+                yield spec, period[f"block{i}"]
+
+
+def recurrent_guard(dev) -> dict:
+    """Training rwkv6's and jamba's smoke configs on the card raises: their
+    scan kernels have no backward yet."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, loss_fn
+    out = {}
+    for arch in (RWKV_ARCH, JAMBA_ARCH):
+        cfg = get_smoke_config(arch)
+        params = init_params(cfg, 0, device=dev)
+        for _, t in _leaves(params):
+            t.requires_grad_(True)
+        toks = torch.randint(0, cfg.vocab_size, (1, 16), device=dev)
+        try:
+            loss_fn(cfg, params, {"tokens": toks,
+                                  "labels": toks.roll(-1, 1)})[0].backward()
+        except NotImplementedError as e:
+            out[arch] = str(e)[:120]
+        else:
+            raise AssertionError(f"{arch}: training on the card did not "
+                                 f"raise")
+    log(f"[train] recurrent guard: {out}")
+    return out
+
+
+def phase_training(dev) -> dict:
+    """Phase 13: the flash backward kernel on a training layer's own
+    operands, the whole model's gradient against the plain versions,
+    gemma3-1b trained with a kill and a resume, deepseek-moe-16b's MoE
+    trained, the ``train_lm`` twin, and the recurrent guard."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    t_phase = time.monotonic()
+    paths: dict = {}
+    out: dict = {"launches": paths}
+    cfg = get_config(ARCH)
+    # -- the whole model's gradient at batch 1, the kernels' operands tapped
+    params = init_params(cfg, 0, device=dev)
+    toks = family_inputs(cfg, TRAIN_S + 1, dev, seed=3)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    with OperandTap("flash_attention_bwd", k=1) as btap, \
+            OperandTap("flash_attention_fwd", k=1) as ftap:
+        out["whole_model_grad"] = compare_grads(cfg, params, batch)
+    del params, batch
+    torch.cuda.empty_cache()
+    kernel = {}
+    for (args, static) in (s for v in btap.samples.values() for s in v):
+        which = "global" if static["window"] is None else "local"
+        kernel[which] = check_flash_bwd(
+            args, static, f"{ARCH} {which} layer (B 1, S {TRAIN_S})")
+    out["lse_leaves_o"] = all(lse_leaves_o(args, static) for v in
+                              ftap.samples.values() for args, static in v)
+    log(f"[train] forward output bit-equal with the log-sum-exp on: "
+        f"{out['lse_leaves_o']}")
+    if not out["lse_leaves_o"] or set(kernel) != {"global", "local"}:
+        raise AssertionError(f"flash forward with lse: {out['lse_leaves_o']}"
+                             f", tapped layers {sorted(kernel)}")
+    del btap, ftap
+    # -- one float32 case (GQA, window and soft-cap) ---------------------
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    rng = np.random.default_rng(6)
+    q2, k2, v2, dout = (torch.from_numpy(rng.standard_normal(
+        sh, np.float32)).to(dev) for sh in ((8, 1000, 64), (2, 1000, 64),
+                                           (2, 1000, 64), (8, 1000, 64)))
+    static = dict(causal=True, window=300, softcap=5.0)
+    q2 = q2 * 0.125
+    o, lse = flash_attention_cuda(q2, k2, v2, return_lse=True, **static)
+    kernel["float32"] = check_flash_bwd((q2, k2, v2, o, dout, lse), static,
+                                        "float32 softcap", time_it=False)
+    del q2, k2, v2, dout, o, lse
+    # -- training -----------------------------------------------------------
+    out["train"] = train_kill_resume(dev, paths)
+    moe_tap = OperandTap("flash_attention_bwd", k=1)
+    out["moe"] = train_moe(dev, paths, moe_tap)
+    args, static = next(s for v in moe_tap.samples.values() for s in v)
+    kernel["moe"] = check_flash_bwd(args, static,
+                                    f"{MOE_ARCH} layer (B 1, S {TRAIN_S})")
+    del moe_tap, args
+    torch.cuda.empty_cache()
+    from repro_torch.examples import train_lm
+    lm = train_lm.make_100m()
+    lm_out, lm_wall, _ = counted_path("train_lm twin", lambda: train_lm.main(
+        dev), {"flash_attention_fwd": 2 * lm.n_layers * 200,
+               "flash_attention_bwd": lm.n_layers * 200}, paths)
+    out["train_lm"] = {k: lm_out[k] for k in ("first_loss", "final_loss",
+                                               "tok_per_s", "steps")}
+    out["train_lm"]["wall_s"] = lm_wall
+    out["recurrent_guard"] = recurrent_guard(dev)
+    out["kernel"] = kernel
+    out["seconds"] = time.monotonic() - t_phase
+    log(f"[train] phase: {out['seconds']:.1f} s")
+    return out
+
+
 def close_logits(a, b, what: str) -> dict:
     """Two logits tensors under the whole-model gate: max |a - b| within
     MODEL_REL_TOL of b's largest |logit|, cosine at least MODEL_MIN_COS."""
@@ -4653,6 +5212,7 @@ def main() -> int:
     model = phase_model(dev)
     families = phase_model_families(dev)
     recurrent = phase_recurrent_families(dev)
+    training = phase_training(dev)
     # run_path has already required a launch on every path that runs a
     # hand kernel
     kernels["uts_expand"]["launches_by_path"] = uts["launches"]
@@ -4730,6 +5290,31 @@ def main() -> int:
             **{x: k[x] for x in ("max_abs_err", "bit_equal", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "shape")}}
+    # the backward kernel, measured on the whole-model gradient's own
+    # operands: a global (causal) layer of gemma3-1b, with its local (window
+    # 512) layer, deepseek-moe-16b's layer and a float32 case beside it;
+    # launches on every training path (and 0 on the inference paths)
+    bwd = training["kernel"]
+    kernels["flash_attention_bwd"] = {
+        "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
+        "matched": True,
+        "launches_by_path": {
+            **{p: n for ph in (model, families, recurrent)
+               for p, n in ph["launches"].get("flash_attention_bwd",
+                                              {}).items()},
+            **training["launches"]["flash_attention_bwd"]},
+        **{k: bwd["global"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms", "shape",
+                                         "deterministic")},
+        **{f"{which}_layer" if which != "float32" else "float32_case": {
+            k: bwd[which].get(k) for k in (
+                "shape", "window", "softcap", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "max_abs_err", "rel_err_float32")}
+           for which in ("local", "moe", "float32")},
+        "lse_leaves_o": training["lse_leaves_o"],
+        "max_abs_err_is": "max |err| / max |value| of each of dQ, dK, dV"}
+    flash["launches_by_path"].update(
+        training["launches"]["flash_attention_fwd"])
     # the chaos and harness phases' paths, each with the launches of the
     # kernels it runs (a harness path that runs no kernel records none)
     for phase in (chaos, harness):
@@ -4747,7 +5332,10 @@ def main() -> int:
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
                | {x: k[x] for x in ("local_layer", "moe_layer", "mla_layer",
-                                    "jamba_layer", "bit_equal",
+                                    "jamba_layer", "float32_case",
+                                    "deterministic", "lse_leaves_o",
+                                    "max_abs_err_is",
+                                    "bit_equal",
                                     "full_iteration_ms",
                                     "bound_dwell_sum_ms", "in_set_main_path",
                                     "bound_loose_ms", "levels",
@@ -4762,7 +5350,7 @@ def main() -> int:
               "flash_fixed_shapes": flash_fixed, "uts": uts, "ms": ms,
               "ms_paper_size": paper, "bc": bc, "chaos": chaos,
               "harness": harness, "model": model, "families": families,
-              "recurrent": recurrent,
+              "recurrent": recurrent, "training": training,
               "leftover_processes_stopped": leftover}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -3,6 +3,8 @@
     python -m repro_torch.examples.quickstart
     python -m repro_torch.examples.mandelbrot_render
     python -m repro_torch.examples.betweenness_centrality
+    python -m repro_torch.examples.train_lm
+    python -m repro_torch.examples.serve_lm
 
 Each module has a ``main(device=None, ...)`` that runs on the CUDA card by
 default (``device="cpu"`` when asked), takes its workload's sizes

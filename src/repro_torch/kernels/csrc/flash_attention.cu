@@ -96,6 +96,7 @@ constexpr int kMaxStages = 4;
 constexpr int kSmemLimit = 232448;  // a block's shared memory on the H100
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // dtype codes of the C interface
 constexpr int kFloat32 = 0;
@@ -647,8 +648,9 @@ __global__ void __launch_bounds__((Plan<EQK, EV, D>::kThreads), 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap v_map,
-                 typename EQK::T* __restrict__ o, int g, int sq, int skv,
-                 int causal, int window, float softcap) {
+                 typename EQK::T* __restrict__ o, float* __restrict__ lse,
+                 int g, int sq, int skv, int causal, int window,
+                 float softcap) {
   using P = Plan<EQK, EV, D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_addr = smem_u32(smem_raw);
@@ -886,6 +888,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       const float a0 = exp2f(m[h] - m_new);
       const float a1 = exp2f(m1 - m_new);
       l[h] = l[h] * a0 + l1 * a1;
+      m[h] = m_new;  // for the log-sum-exp; the output needs only l
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
 #pragma unroll
@@ -896,11 +899,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   }
 
-  // acc / max(l, 1e-30) in q's dtype
+  // acc / max(l, 1e-30) in q's dtype; where asked, the row's log-sum-exp
+  // of its live scores in the natural base, m ln 2 + ln l (+inf for a row
+  // with no live key), which the backward kernel recomputes p from
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = q_lo + row + 8 * h;
     if (r >= sq) continue;
+    if (lse != nullptr && tq == 0)
+      lse[static_cast<size_t>(head) * sq + r] =
+          l[h] > 0.f ? m[h] * kLn2 + logf(l[h]) : __int_as_float(0x7f800000);
     const float den = fmaxf(l[h], 1e-30f);
     typename EQK::T* orow = o + (static_cast<size_t>(head) * sq + r) * D;
 #pragma unroll
@@ -976,9 +984,9 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, int bytes,
 }
 
 template <typename EQK, typename EV, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int bhg,
-           int g, int sq, int skv, int causal, int window, float softcap,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bhg, int g, int sq, int skv, int causal, int window,
+           float softcap, cudaStream_t stream) {
   using P = Plan<EQK, EV, D>;
   if (skv <= 0)  // no key: every output row is 0 / max(0, 1e-30) = 0
     return static_cast<int>(cudaMemsetAsync(
@@ -997,19 +1005,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int bhg,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, bhg);
   flash_fwd_kernel<EQK, EV, D><<<grid, P::kThreads, P::kSmem, stream>>>(
-      q_map, k_map, v_map, static_cast<typename EQK::T*>(o), g, sq, skv,
-      causal, window, softcap);
+      q_map, k_map, v_map, static_cast<typename EQK::T*>(o), lse, g, sq,
+      skv, causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename EQK, typename EV>
 int launch_d(int d, const void* q, const void* k, const void* v, void* o,
-             int bhg, int g, int sq, int skv, int causal, int window,
-             float softcap, cudaStream_t stream) {
-#define FLASH_CASE(D)                                                     \
-  case D:                                                                 \
-    return launch<EQK, EV, D>(q, k, v, o, bhg, g, sq, skv, causal, window, \
-                              softcap, stream);
+             float* lse, int bhg, int g, int sq, int skv, int causal,
+             int window, float softcap, cudaStream_t stream) {
+#define FLASH_CASE(D)                                                      \
+  case D:                                                                  \
+    return launch<EQK, EV, D>(q, k, v, o, lse, bhg, g, sq, skv, causal,    \
+                              window, softcap, stream);
   switch (d) {
     FLASH_CASE(16)
     FLASH_CASE(32)
@@ -1025,27 +1033,30 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q, o: [bhg, sq, d]; k, v: [bhg / g, skv, d]; all contiguous on the device,
-// 16-byte aligned.  q, k and o have dtype `qk_dtype`, v has `v_dtype` (0
+// 16-byte aligned.  lse: null, or float32 [bhg, sq], which gets each row's
+// log-sum-exp (o does not change with it: the same code writes it).  q, k and o have dtype `qk_dtype`, v has `v_dtype` (0
 // float32, 1 bfloat16): both float32, both bfloat16, or float32 q and k with
 // bfloat16 v.  d in {16, 32, 64, 128, 256}; bhg <= 65535 (grid y).
 // window <= 0 means none, softcap <= 0 means none.  Launches on `stream`;
 // returns cudaGetLastError() (cudaErrorInvalidValue for an unsupported
 // dtype pair or d, or a tensor map the driver refuses).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int bhg, int g,
-                                      int sq, int skv, int d, int qk_dtype,
-                                      int v_dtype, int causal, int window,
-                                      float softcap, void* stream) {
+                                      const void* v, void* o, void* lse,
+                                      int bhg, int g, int sq, int skv, int d,
+                                      int qk_dtype, int v_dtype, int causal,
+                                      int window, float softcap,
+                                      void* stream) {
   if (bhg <= 0 || sq <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (qk_dtype == kFloat32 && v_dtype == kFloat32)
-    return launch_d<F32, F32>(d, q, k, v, o, bhg, g, sq, skv, causal, window,
-                              softcap, s);
+    return launch_d<F32, F32>(d, q, k, v, o, l, bhg, g, sq, skv, causal,
+                              window, softcap, s);
   if (qk_dtype == kBFloat16 && v_dtype == kBFloat16)
-    return launch_d<BF16, BF16>(d, q, k, v, o, bhg, g, sq, skv, causal,
+    return launch_d<BF16, BF16>(d, q, k, v, o, l, bhg, g, sq, skv, causal,
                                 window, softcap, s);
   if (qk_dtype == kFloat32 && v_dtype == kBFloat16)
-    return launch_d<F32, BF16>(d, q, k, v, o, bhg, g, sq, skv, causal,
+    return launch_d<F32, BF16>(d, q, k, v, o, l, bhg, g, sq, skv, causal,
                                window, softcap, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

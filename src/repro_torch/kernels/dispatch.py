@@ -40,7 +40,7 @@ __all__ = [
     "KernelOp", "register_kernel", "get_kernel", "registered_kernels",
     "dispatch", "bucket", "resolve_backend",
     "compile_log", "reset_compile_log", "estimate_cost",
-    "launches", "record_launch", "reset_launches",
+    "launches", "record_launch", "reset_launches", "refuse_grad",
 ]
 
 BACKENDS = ("cuda", "ref")
@@ -181,6 +181,18 @@ def record_launch(name: str) -> None:
     """Count one kernel launch of ``name`` (called by its CUDA body)."""
     with _LAUNCHES_LOCK:
         _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+
+
+def refuse_grad(name: str, *operands: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through kernel ``name``,
+    which has no backward kernel: its output would carry none, and the
+    gradients upstream of it would be silently wrong."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward yet, and an operand "
+            f"requires grad (ROADMAP.md, queue 1: the scans' backward "
+            f"kernels); train these layers on the CPU, where the plain "
+            f"version is differentiable")
 
 
 def reset_launches(name: Optional[str] = None) -> None:

@@ -1,1 +1,3 @@
-"""Fused flash attention (forward): hand-written CUDA kernel + plain version."""
+"""Fused flash attention, forward and backward: hand-written CUDA kernels
+(csrc/flash_attention.cu, csrc/flash_attention_bwd.cu) and their plain
+versions."""

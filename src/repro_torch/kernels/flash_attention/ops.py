@@ -12,6 +12,19 @@ three to the next one it is (256) and cuts the output back to v's: zeros
 add nothing to a dot product, so this is exact, and it costs the padded
 shape's time (a kernel instantiation for Dk != Dv is later work).
 
+Training: when an operand requires grad, :func:`flash_attention_fused`
+goes through :class:`FlashAttention`, an autograd function whose forward
+runs op ``flash_attention_fwd`` with the rows' log-sum-exp on (the CUDA
+kernel writes it beside ``o``, which it leaves bit for bit as it is) and
+whose backward runs op ``flash_attention_bwd``: on CUDA tensors the
+hand-written backward kernel ``csrc/flash_attention_bwd.cu`` (three
+launches, counted once), on the CPU autograd over the plain forward.  The
+JAX package has no backward kernel (its training path is XLA's autodiff
+of a chunked flash, ``repro.models.attention.attention_train``); without
+this function the CUDA forward's output would carry no gradient at all.
+Under ``torch.utils.checkpoint`` the forward runs twice and the backward
+once a layer.
+
 ``flash_attention_fused`` keeps the reference's ``q_chunk`` and
 ``kv_chunk`` arguments for its callers, and drops them: they sized the
 Pallas kernel's VMEM blocks.  The CUDA kernel uses its own tiles (64
@@ -29,10 +42,12 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..dispatch import KernelOp, dispatch, record_launch, register_kernel
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = ["flash_attention_fused", "flash_attention_ref",
-           "flash_attention_cuda", "kernel_tiles", "padded_head_dim"]
+           "flash_attention_cuda", "flash_attention_bwd_cuda",
+           "flash_attention_bwd_ref", "FlashAttention", "kernel_tiles",
+           "padded_head_dim"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: (q and k, v) dtype pairs the kernel is built for; a bf16 model feeds the
@@ -50,7 +65,7 @@ def _lib() -> ctypes.CDLL:
     """The kernel's library, built and loaded on first use."""
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -60,62 +75,94 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    """The backward kernel's library, built and loaded on first use."""
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def kernel_tiles() -> tuple:
     """The CUDA kernel's (query rows, keys) per tile."""
     lib = _lib()
     return lib.flash_attention_block_q(), lib.flash_attention_block_k()
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, window: Optional[int] = None,
-                         softcap: Optional[float] = None) -> torch.Tensor:
-    """Launch the CUDA kernel. q: [BHG, Sq, D] (pre-scaled);
-    k, v: [BHkv, Skv, D]; q and k of one dtype, (q/k, v) float32 and
-    float32, bfloat16 and bfloat16, or float32 and bfloat16; D in
-    {16, 32, 64, 128, 256}.  Returns [BHG, Sq, D] in q's dtype."""
+def _check_operands(what: str, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, window: Optional[int],
+                    softcap: Optional[float]) -> None:
+    """Device, dtypes, shapes, alignment and options both kernels take."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(
-            f"flash_attention_cuda: CUDA tensors on one device expected, got "
+            f"{what}: CUDA tensors on one device expected, got "
             f"{q.device}, {k.device}, {v.device}")
     if k.dtype != q.dtype or (q.dtype, v.dtype) not in _DTYPE_PAIRS:
         raise TypeError(
-            f"flash_attention_cuda: q and k of one dtype, (q/k, v) dtypes "
+            f"{what}: q and k of one dtype, (q/k, v) dtypes "
             f"one of {[tuple(map(str, p)) for p in _DTYPE_PAIRS]} expected, "
             f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(
-            f"flash_attention_cuda: q [BHG, Sq, D], k and v [BHkv, Skv, D] "
+            f"{what}: q [BHG, Sq, D], k and v [BHkv, Skv, D] "
             f"expected, got {tuple(q.shape)}, {tuple(k.shape)}, "
             f"{tuple(v.shape)}")
     bhg, sq, d = q.shape
     bhkv, skv, dk = k.shape
     if dk != d or d not in _HEAD_DIMS:
         raise ValueError(
-            f"flash_attention_cuda: head dims {d} (q) and {dk} (k, v) must "
+            f"{what}: head dims {d} (q) and {dk} (k, v) must "
             f"agree and be one of {_HEAD_DIMS}")
     if bhkv == 0 or bhg % bhkv or bhg > _MAX_HEADS:
         raise ValueError(
-            f"flash_attention_cuda: {bhg} query heads on {bhkv} KV heads "
+            f"{what}: {bhg} query heads on {bhkv} KV heads "
             f"(a multiple, at most {_MAX_HEADS})")
     if max(sq, skv) >= 2**30:
-        raise ValueError(f"flash_attention_cuda: sequence {max(sq, skv)} "
+        raise ValueError(f"{what}: sequence {max(sq, skv)} "
                          f"beyond the kernel's 32-bit positions")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(
-                f"flash_attention_cuda: {name} must be contiguous and "
+                f"{what}: {name} must be contiguous and "
                 f"16-byte aligned")
     if window is not None and window < 1:
-        raise ValueError(f"flash_attention_cuda: window {window} < 1")
+        raise ValueError(f"{what}: window {window} < 1")
     if softcap is not None and not softcap > 0:
-        raise ValueError(f"flash_attention_cuda: softcap {softcap} <= 0")
+        raise ValueError(f"{what}: softcap {softcap} <= 0")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: Optional[int] = None,
+                         softcap: Optional[float] = None,
+                         return_lse: bool = False):
+    """Launch the CUDA kernel. q: [BHG, Sq, D] (pre-scaled);
+    k, v: [BHkv, Skv, D]; q and k of one dtype, (q/k, v) float32 and
+    float32, bfloat16 and bfloat16, or float32 and bfloat16; D in
+    {16, 32, 64, 128, 256}.  Returns [BHG, Sq, D] in q's dtype, and with
+    ``return_lse`` also the rows' log-sum-exp, float32 [BHG, Sq]."""
+    _check_operands("flash_attention_cuda", q, k, v, window, softcap)
+    dev = q.device
+    bhg, sq, d = q.shape
+    bhkv, skv, _ = k.shape
     out = torch.empty((bhg, sq, d), dtype=q.dtype, device=dev)
+    lse = None
+    if return_lse:
+        # with no key the kernel only zeroes the output: +inf for every row
+        lse = torch.full((bhg, sq), float("inf"), dtype=torch.float32,
+                         device=dev) if skv == 0 else torch.empty(
+            (bhg, sq), dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bhg,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), bhg,
             bhg // bhkv, sq, skv, d, _DTYPES[q.dtype], _DTYPES[v.dtype],
             int(causal),
             -1 if window is None else int(window),
@@ -126,7 +173,52 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{lib.flash_attention_error_string(err).decode()} "
             f"(cudaError {err})")
     record_launch("flash_attention_fwd")
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             dout: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True,
+                             window: Optional[int] = None,
+                             softcap: Optional[float] = None) -> tuple:
+    """Launch the backward kernel: q, k, v as :func:`flash_attention_cuda`
+    takes them, ``o`` its output, ``dout`` the output's gradient (both
+    [BHG, Sq, D] in q's dtype) and ``lse`` its rows' log-sum-exp (float32
+    [BHG, Sq]).  Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    _check_operands("flash_attention_bwd_cuda", q, k, v, window, softcap)
+    bhg, sq, d = q.shape
+    bhkv, skv, _ = k.shape
+    for name, t, dtype, shape in (("o", o, q.dtype, q.shape),
+                                  ("dout", dout, q.dtype, q.shape),
+                                  ("lse", lse, torch.float32, (bhg, sq))):
+        if t.device != q.device or t.dtype != dtype or \
+                tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(
+                f"flash_attention_bwd_cuda: {name} must be a contiguous "
+                f"{dtype} {tuple(shape)} tensor on {q.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if sq == 0 or skv == 0:
+        raise ValueError("flash_attention_bwd_cuda: empty sequence")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((bhg, sq), dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), bhg, bhg // bhkv, sq, skv, d,
+            _DTYPES[q.dtype], _DTYPES[v.dtype], int(causal),
+            -1 if window is None else int(window),
+            0.0 if softcap is None else float(softcap), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd kernel launch failed: "
+            f"{lib.flash_attention_bwd_error_string(err).decode()} "
+            f"(cudaError {err})")
+    record_launch("flash_attention_bwd")
+    return dq, dk, dv
 
 
 register_kernel(KernelOp(
@@ -141,6 +233,45 @@ register_kernel(KernelOp(
     cost_hint=lambda q2, k2, v2: float(
         q2.shape[0] * q2.shape[1] * k2.shape[1]),
 ))
+
+
+register_kernel(KernelOp(
+    name="flash_attention_bwd",
+    cuda_body=flash_attention_bwd_cuda,
+    reference_body=flash_attention_bwd_ref,
+    arg_dims=((),) * 6,
+    pad_values=(0,) * 6,
+    out_dims=(),
+    bucket_floor=1,
+    cost_hint=lambda q2, k2, *rest: float(
+        q2.shape[0] * q2.shape[1] * k2.shape[1]),
+))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward kernel, on the kernel's layout:
+    ``apply(q2, k2, v2, backend, causal, window, softcap)`` with q2
+    [BHG, Sq, D], k2 and v2 [BHkv, Skv, D] as :func:`flash_attention_cuda`
+    takes them.  The forward keeps q2, k2, v2, the output and its rows'
+    log-sum-exp for the backward."""
+
+    @staticmethod
+    def forward(ctx, q2, k2, v2, backend, causal, window, softcap):
+        out, lse = dispatch("flash_attention_fwd", q2, k2, v2,
+                            backend=backend, causal=causal, window=window,
+                            softcap=softcap, return_lse=True)
+        ctx.save_for_backward(q2, k2, v2, out, lse)
+        ctx.opts = dict(backend=backend, causal=causal, window=window,
+                        softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q2, k2, v2, out, lse = ctx.saved_tensors
+        dq, dk, dv = dispatch("flash_attention_bwd", q2, k2, v2, out,
+                              dout.to(out.dtype).contiguous(), lse,
+                              **ctx.opts)
+        return dq, dk, dv, None, None, None, None
 
 
 def padded_head_dim(dk: int, dv: int) -> int:
@@ -162,7 +293,9 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [B, Sq, Hkv, G, Dk] (pre-scaled); k/v: [B, Skv, Hkv, D*].
     Returns [B, Sq, Hkv, G, Dv].  ``backend``: "cuda", "ref", or None =
     from the operands' device.  Head dims the kernel is not built for are
-    zero-padded to :func:`padded_head_dim` on either backend."""
+    zero-padded to :func:`padded_head_dim` on either backend (the padding's
+    gradient is cut off with the output's columns).  Differentiable: with
+    an operand that requires grad it runs :class:`FlashAttention`."""
     del q_chunk, kv_chunk  # no result depends on them (module docstring)
     b, sq, hkv, g, dk = q.shape
     skv = k.shape[1]
@@ -174,6 +307,11 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # zero columns add nothing to q.k and give output columns that are cut
     q2, k2, v2 = ((F.pad(t, (0, d - t.shape[-1])) if t.shape[-1] < d
                    else t).contiguous() for t in (q2, k2, v2))
-    out = dispatch("flash_attention_fwd", q2, k2, v2, backend=backend,
-                   causal=causal, window=window, softcap=softcap)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (q2, k2, v2)):
+        out = FlashAttention.apply(q2, k2, v2, backend, causal, window,
+                                   softcap)
+    else:
+        out = dispatch("flash_attention_fwd", q2, k2, v2, backend=backend,
+                       causal=causal, window=window, softcap=softcap)
     return out[..., :dv].reshape(b, hkv, g, sq, dv).permute(0, 3, 1, 2, 4)

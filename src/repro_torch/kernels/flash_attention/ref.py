@@ -10,7 +10,13 @@ CUDA kernel also takes.
 It works through the query rows in blocks so that its memory stays
 bounded: a [4, 32768, 32768] float32 score tensor alone is 17 GB.  Every
 row gets the same arithmetic as in one block; the block size changes
-nothing but the peak memory.
+nothing but the peak memory.  With ``return_lse`` it also returns each
+row's log-sum-exp over its masked scores (what the CUDA forward writes for
+its backward).
+
+:func:`flash_attention_bwd_ref` is the plain version of the backward
+kernel: autograd over :func:`flash_attention_ref`, which recomputes the
+forward (it takes ``o`` and ``lse`` only to have the kernel's signature).
 """
 from __future__ import annotations
 
@@ -18,7 +24,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["flash_attention_ref", "NEG_INF"]
+__all__ = ["flash_attention_ref", "flash_attention_bwd_ref", "NEG_INF"]
 
 NEG_INF = -1e30
 #: score elements (float32) held at once across all heads of a row block
@@ -27,10 +33,12 @@ _SCORE_BUDGET = 1 << 27
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
-                        softcap: Optional[float] = None) -> torch.Tensor:
+                        softcap: Optional[float] = None,
+                        return_lse: bool = False):
     """Direct softmax attention. q: [BHG, Sq, Dk] (pre-scaled);
     k: [BHkv, Skv, Dk]; v: [BHkv, Skv, Dv]; BHG = BHkv * G.
-    Returns [BHG, Sq, Dv] in q's dtype."""
+    Returns [BHG, Sq, Dv] in q's dtype, and with ``return_lse`` also the
+    rows' log-sum-exp, float32 [BHG, Sq]."""
     bhg, sq, dk = q.shape
     bhkv, skv, dv = v.shape
     if bhg % bhkv or k.shape != (bhkv, skv, dk):
@@ -44,6 +52,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = k.float().transpose(1, 2)                       # [BHkv, Dk, Skv]
     kpos = torch.arange(skv, device=q.device)
     out = torch.empty((bhkv, g, sq, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((bhkv, g, sq), dtype=torch.float32,
+                      device=q.device) if return_lse else None
     for r0 in range(0, sq, block_rows):
         r1 = min(sq, r0 + block_rows)
         s = torch.matmul(qf[:, :, r0:r1].float(), kf[:, None])
@@ -56,7 +66,26 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if window is not None:
             mask &= (qpos[:, None] - kpos[None, :]) < window
         s = torch.where(mask, s, NEG_INF)
+        if lse is not None:
+            lse[:, :, r0:r1] = torch.logsumexp(s, dim=-1)
         p = torch.softmax(s, dim=-1)
         del s
         out[:, :, r0:r1] = torch.matmul(p.to(v.dtype), v[:, None]).to(q.dtype)
-    return out.reshape(bhg, sq, dv)
+    out = out.reshape(bhg, sq, dv)
+    return (out, lse.reshape(bhg, sq)) if return_lse else out
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            dout: torch.Tensor, lse: torch.Tensor, *,
+                            causal: bool = True,
+                            window: Optional[int] = None,
+                            softcap: Optional[float] = None):
+    """(dq, dk, dv) of :func:`flash_attention_ref` at ``dout``, by autograd
+    over it, each in its input's dtype.  ``o`` and ``lse`` are unused."""
+    del o, lse
+    with torch.enable_grad():
+        qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+        out = flash_attention_ref(qd, kd, vd, causal=causal, window=window,
+                                  softcap=softcap)
+        return torch.autograd.grad(out, (qd, kd, vd), dout.to(out.dtype))

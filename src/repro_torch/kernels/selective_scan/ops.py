@@ -15,7 +15,8 @@ import functools
 import torch
 
 from .. import _build
-from ..dispatch import KernelOp, dispatch, record_launch, register_kernel
+from ..dispatch import (KernelOp, dispatch, record_launch, refuse_grad,
+                        register_kernel)
 from .ref import selective_scan_ref
 
 __all__ = ["selective_scan", "selective_scan_cuda", "selective_scan_ref",
@@ -81,8 +82,11 @@ def _check(xi, dt, bm, cm, a, state) -> tuple:
 def selective_scan_cuda(xi: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
                         cm: torch.Tensor, a: torch.Tensor,
                         state: torch.Tensor) -> tuple:
-    """Launch the kernel: ``(y, state)``, ``state`` updated in place."""
+    """Launch the kernel: ``(y, state)``, ``state`` updated in place.
+    Raises ``NotImplementedError`` when an operand requires grad: the
+    kernel has no backward yet."""
     b, s, di, n = _check(xi, dt, bm, cm, a, state)
+    refuse_grad("selective_scan", xi, dt, bm, cm, a, state)
     y = torch.empty((b, s, di), dtype=torch.float32, device=xi.device)
     lib = _lib()
     with torch.cuda.device(xi.device):

@@ -54,7 +54,9 @@ def selective_scan_ref(xi: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     docstring for the operands."""
     b, s, di = xi.shape
     y = torch.empty((b, s, di), dtype=torch.float32, device=xi.device)
-    st = state.float()
+    # a copy: on a float32 state ``float()`` is the state itself, which the
+    # in-place write below would change under autograd's saved tensors
+    st = state.to(torch.float32, copy=True)
     for t in range(s):
         dtt = dt[:, t, :, None]                            # [B, Di, 1]
         bx = xi[:, t, :, None] * bm[:, t, None, :]         # [B, Di, N]

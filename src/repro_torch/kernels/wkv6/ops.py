@@ -15,7 +15,8 @@ import functools
 import torch
 
 from .. import _build
-from ..dispatch import KernelOp, dispatch, record_launch, register_kernel
+from ..dispatch import (KernelOp, dispatch, record_launch, refuse_grad,
+                        register_kernel)
 from .ref import wkv6_ref
 
 __all__ = ["wkv6", "wkv6_cuda", "wkv6_ref", "HEAD_SIZES"]
@@ -73,8 +74,11 @@ def _check(r, k, v, w, u, state) -> tuple:
 
 def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor, state: torch.Tensor) -> tuple:
-    """Launch the kernel: ``(o, state)``, ``state`` updated in place."""
+    """Launch the kernel: ``(o, state)``, ``state`` updated in place.
+    Raises ``NotImplementedError`` when an operand requires grad: the
+    kernel has no backward yet."""
     b, s, h, hd = _check(r, k, v, w, u, state)
+    refuse_grad("wkv6", r, k, v, w, u, state)
     o = torch.empty((b, s, h, hd), dtype=torch.float32, device=r.device)
     lib = _lib()
     with torch.cuda.device(r.device):

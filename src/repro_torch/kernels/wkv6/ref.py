@@ -37,7 +37,9 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     docstring for the operands."""
     o = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     uu = u[None, :, :, None]                               # [1, H, hd, 1]
-    st = state.float()
+    # a copy: on a float32 state ``float()`` is the state itself, which the
+    # in-place write below would change under autograd's saved tensors
+    st = state.to(torch.float32, copy=True)
     for t in range(r.shape[1]):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]     # [B, H, hd, hd]
         o[:, t] = tree_sum(r[:, t, :, :, None] * (st + uu * kv), 2)

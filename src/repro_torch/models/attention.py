@@ -8,7 +8,9 @@ core, the KV cache is ``{"k", "v"}`` of [B, max_seq, Hkv, D].
   ``dispatch("flash_attention_fwd", ...)``: on CUDA tensors that is the
   hand-written kernel (``kernels/csrc/flash_attention.cu``), on the CPU
   the plain version.  It is what ``attention_train`` and therefore every
-  layer of ``prefill`` runs.
+  layer of ``prefill`` and of training runs; with grad enabled it goes
+  through the ``FlashAttention`` autograd function, whose backward is the
+  hand-written backward kernel (``csrc/flash_attention_bwd.cu``).
 * In a bf16 model q and k leave RoPE in float32 and v stays bf16, as in
   the reference; the kernel takes that pair of dtypes.  The attention
   output is cast to v's dtype before the output projection, the dtype
@@ -106,11 +108,15 @@ def _attend(params: dict, q: torch.Tensor, k: torch.Tensor,
 def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
                     cfg: AttentionConfig, *,
                     q_chunk: int = DEFAULT_Q_CHUNK,
-                    kv_chunk: int = DEFAULT_KV_CHUNK) -> torch.Tensor:
+                    kv_chunk: int = DEFAULT_KV_CHUNK,
+                    backend: Optional[str] = None) -> torch.Tensor:
     """Causal (optionally sliding-window) self-attention over a full
-    sequence. x: [B, S, D]; positions: [B, S] (arange)."""
+    sequence. x: [B, S, D]; positions: [B, S] (arange).  Differentiable:
+    with grad enabled the flash core runs forward and backward kernels
+    (``FlashAttention``); ``backend="ref"`` forces the plain versions."""
     q, k, v = _qkv(params, x, positions, cfg)
-    return _attend(params, q, k, v, cfg, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return _attend(params, q, k, v, cfg, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                   backend=backend)
 
 
 def init_kv_cache(batch: int, max_seq: int, cfg: AttentionConfig,

@@ -17,24 +17,39 @@ and ``{"state", "x_prev"}`` for RWKV-6's time mix, whose channel mix
 carries ``["ffn"] = {"x_prev"}``.  The recurrent caches hold no sequence
 axis: decode updates them in place, every step, for every slot.
 
-Inference only: ``forward`` has no remat and no loss.  Prefill attention
-(and MLA's expanded form) runs the hand-written flash kernel on CUDA
-tensors, Mamba's recurrence the selective-scan kernel and RWKV-6's the
-WKV kernel, in prefill and in decode (``backend="ref"`` forces the plain
-versions, to compare the two on the card).  A MoE block runs
-``moe_block_local`` on one device plus the shared experts, as the
+Training and inference.  ``forward`` is the reference's training forward
+(``remat`` and ``return_hidden`` included) and ``loss_fn`` its loss: the
+float32 cross-entropy ``_xent`` over the whole vocabulary (no chunking, as
+in the reference), plus the MoE router's aux loss weighted by
+``router_aux_weight``, plus 0.3 x the MTP head's next-next-token loss where
+``cfg.mtp_depth`` builds one.  Remat wraps each period (all blocks of one
+period, as the reference's ``_wrap_remat`` wraps its scan body) in
+``torch.utils.checkpoint(..., use_reentrant=False)``: ``"full"`` keeps only
+the period's input, ``"dots"`` also the outputs of the dense products
+without batch dims (``aten.mm``, ``aten.addmm``: the counterpart of
+``checkpoint_dots_with_no_batch_dims``), ``"none"`` wraps nothing.  Remat
+applies only while grad is enabled.  Attention (and MLA's expanded form)
+runs the hand-written flash kernels on CUDA tensors, forward and, under
+autograd, backward; Mamba's recurrence runs the selective-scan kernel and
+RWKV-6's the WKV kernel in prefill and decode, whose CUDA wrappers refuse
+operands that require grad (their backward kernels are ROADMAP.md's next
+item; on the CPU the plain scans are differentiable).  ``backend="ref"``
+forces the plain versions, to compare the two on the card.  A MoE block
+runs ``moe_block_local`` on one device plus the shared experts, as the
 reference does without a ``ShardCtx``; its aux loss is summed over the
-layers in ``forward``.  With ``cfg.mtp_depth``
-``init_params`` builds the reference's ``params["mtp"]`` head; only the
-training loss reads it, so serving carries it and never runs it.
-``ShardCtx`` and the MoE mesh path are not ported yet and raise
-``NotImplementedError`` naming ``ROADMAP.md``.
+layers in ``forward``.  With ``cfg.mtp_depth`` ``init_params`` builds the
+reference's ``params["mtp"]`` head; only the training loss reads it, so
+serving carries it and never runs it.  ``ShardCtx`` and the MoE mesh path
+are not ported yet and raise ``NotImplementedError`` naming
+``ROADMAP.md``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 
 from ..device import DeviceLike, resolve_device
 from .attention import (attention_decode, attention_prefill,
@@ -52,7 +67,7 @@ from .rwkv6 import (init_rwkv_cmix, init_rwkv_cmix_cache, init_rwkv_tmix,
                     rwkv_tmix_prefill, rwkv_tmix_train)
 
 __all__ = ["ShardCtx", "init_params", "forward", "prefill", "decode_step",
-           "init_cache"]
+           "init_cache", "loss_fn"]
 
 _NOT_PORTED = "not ported to repro_torch yet (ROADMAP.md, queue 1)"
 _MIXERS = ("attn", "mla", "mamba", "rwkv6", "none")
@@ -207,33 +222,116 @@ def _ffn(cfg: ModelConfig, spec: BlockSpec, p: dict, x: torch.Tensor
 
 # -- forward ------------------------------------------------------------------
 
+def _block(cfg: ModelConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
+           positions: torch.Tensor, backend: Optional[str]
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block of the training forward -> (x, MoE aux loss or None)."""
+    if spec.mixer != "none":
+        h = rms_norm(p["norm1"], x, cfg.norm_eps)
+        if spec.mixer == "attn":
+            h = attention_train(p["mixer"], h, positions,
+                                _attn_cfg(cfg, spec), backend=backend)
+        elif spec.mixer == "mla":
+            h = mla_train(p["mixer"], h, positions, cfg.mla,
+                          eps=cfg.norm_eps, backend=backend)
+        elif spec.mixer == "mamba":
+            h = mamba_train(p["mixer"], h, cfg.mamba, backend=backend)
+        else:
+            h = rwkv_tmix_train(p["mixer"], h, cfg.rwkv_head_size,
+                                backend=backend)
+        x = x + h
+    return _ffn(cfg, spec, p, x)
+
+
+#: the products whose outputs ``remat="dots"`` keeps: dense layers
+#: (no batch dims), as ``checkpoint_dots_with_no_batch_dims`` does
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kw):
+    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _wrap_remat(body, remat: str):
+    """The reference's ``_wrap_remat`` for one period's body."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return body
+    if remat == "full":
+        return functools.partial(torch_checkpoint.checkpoint, body,
+                                 use_reentrant=False)
+    return functools.partial(      # "dots"
+        torch_checkpoint.checkpoint, body, use_reentrant=False,
+        context_fn=functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _dots_policy))
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
-            ctx: Optional[ShardCtx] = None):
-    """Inference forward -> (logits [B, S, V], aux_loss: the MoE layers'
-    load-balance losses summed, 0 without MoE)."""
+            ctx: Optional[ShardCtx] = None, remat: str = "full",
+            return_hidden: bool = False, backend: Optional[str] = None):
+    """Training forward -> (logits [B, S, V], aux_loss[, hidden]): aux_loss
+    is the MoE layers' load-balance losses summed (0 without MoE), hidden
+    the last block's output before the final norm.  ``remat`` as the
+    reference's (module docstring); it changes no value."""
     _check(cfg, ctx)
+    if remat not in ("full", "dots", "none"):
+        raise ValueError(f"unknown remat policy {remat!r}")
     x = _inputs(cfg, params, batch)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for spec, p in _blocks(cfg, params):
-        if spec.mixer != "none":
-            h = rms_norm(p["norm1"], x, cfg.norm_eps)
-            if spec.mixer == "attn":
-                h = attention_train(p["mixer"], h, positions,
-                                    _attn_cfg(cfg, spec))
-            elif spec.mixer == "mla":
-                h = mla_train(p["mixer"], h, positions, cfg.mla,
-                              eps=cfg.norm_eps)
-            elif spec.mixer == "mamba":
-                h = mamba_train(p["mixer"], h, cfg.mamba)
-            else:
-                h = rwkv_tmix_train(p["mixer"], h, cfg.rwkv_head_size)
-            x = x + h
-        x, aux = _ffn(cfg, spec, p, x)
-        if aux is not None:
-            aux_total = aux_total + aux
-    return _head(cfg, params, x), aux_total
+    for si, stage in enumerate(cfg.stages):
+        def period_body(xc, auxc, period, _stage=stage):
+            for i, spec in enumerate(_stage.pattern):
+                xc, aux = _block(cfg, spec, period[f"block{i}"], xc,
+                                 positions, backend)
+                if aux is not None:
+                    auxc = auxc + aux
+            return xc, auxc
+
+        body = _wrap_remat(period_body, remat)
+        for period in params[f"stage{si}"]:
+            x, aux_total = body(x, aux_total, period)
+    logits = _head(cfg, params, x)
+    if return_hidden:
+        return logits, aux_total, x
+    return logits, aux_total
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy, in float32 over the whole vocabulary."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return (lse - gold).mean()
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
+            ctx: Optional[ShardCtx] = None, remat: str = "full",
+            backend: Optional[str] = None) -> Tuple[torch.Tensor, dict]:
+    """Causal LM loss (+ router aux + optional MTP auxiliary head) ->
+    (total, {"nll", "router_aux"[, "mtp_nll"]})."""
+    logits, aux, h = forward(cfg, params, batch, ctx=ctx, remat=remat,
+                             return_hidden=True, backend=backend)
+    nll = _xent(logits, batch["labels"])
+    del logits
+    total = nll + (cfg.moe.router_aux_weight * aux if cfg.moe else 0.0)
+    metrics = {"nll": nll, "router_aux": aux}
+    if cfg.mtp_depth and "mtp" in params and cfg.frontend is None:
+        tokens = batch["tokens"]
+        labels = batch["labels"]
+        b, s = tokens.shape
+        nxt = embed(params["embed"], tokens[:, 1:])           # t+1 tokens
+        comb = torch.cat([h[:, :-1], nxt], dim=-1)
+        hm = dense(params["mtp"]["combine"], comb)
+        spec = BlockSpec(mixer="mla" if cfg.mla else "attn", ffn="mlp")
+        hm, _ = _block(cfg, spec, params["mtp"]["block"], hm,
+                       _positions(b, s - 1, hm.device), backend)
+        mtp_nll = _xent(_head(cfg, params, hm), labels[:, 1:])
+        total = total + 0.3 * mtp_nll
+        metrics["mtp_nll"] = mtp_nll
+    return total, metrics
 
 
 # -- cache --------------------------------------------------------------------

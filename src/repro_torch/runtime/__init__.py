@@ -1,10 +1,15 @@
 """Runtime helpers of the PyTorch port.
 
 ``straggler.py`` is a copy of ``repro.runtime.straggler``: the
-``SpeculativeExecutor`` behind ``make_pool("speculative")``.  The
-reference's ``elastic`` and ``sharding`` modules (multi-device training
-runtime) are not ported yet.
+``SpeculativeExecutor`` behind ``make_pool("speculative")``.
+``elastic.py`` is the reference's elastic-restart loop (``ElasticRunner``,
+``FailureInjector``, ``rescale_batch_schedule``) on one device.  The
+reference's ``sharding`` module (multi-device training) is not ported yet
+(ROADMAP.md, queue 4).
 """
+from .elastic import (ElasticRunner, FailureInjector, rescale_batch_schedule,
+                      reshard_tree)
 from .straggler import SpeculativeExecutor
 
-__all__ = ["SpeculativeExecutor"]
+__all__ = ["ElasticRunner", "FailureInjector", "SpeculativeExecutor",
+           "rescale_batch_schedule", "reshard_tree"]

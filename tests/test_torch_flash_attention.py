@@ -9,8 +9,12 @@ Also the [B, S, Hkv, G, D] <-> [BHG, S, D] layout moves, the soft-cap
 row blocks, and the pair of dtypes a bf16 model feeds it (float32 q and
 k, bf16 v).  The kernel's scheme for float32 products on the tensor
 cores (three TF32 passes) is emulated against the float32 plain version.
-The tests marked ``cuda`` hold the hand kernel against the plain version
-and need the card.
+Training: the ``FlashAttention`` autograd function's gradients on the CPU
+against ``jax.grad`` of the reference model's flash (causal, window,
+soft-cap, GQA, MLA's zero padding), and the plain version's row
+log-sum-exp against a float64 oracle.  The tests marked ``cuda`` hold the
+hand kernel against the plain version and need the card (the backward
+kernel's are in ``tests/test_torch_flash_bwd_cuda.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -315,6 +319,91 @@ def test_tf32_rounding_is_to_nearest_ties_away():
     want = torch.tensor([one, -one, 1.0, one + 2.0 ** -10, one],
                         dtype=torch.float32)
     assert torch.equal(_tf32_rna(x), want)
+
+
+# -- training: the autograd function and the forward's log-sum-exp ----------
+
+GRAD_CASES = [
+    # b, s, hkv, g, dk, dv, window, softcap
+    (1, 40, 1, 1, 16, 16, None, None),      # causal
+    (2, 33, 2, 2, 8, 8, 12, None),          # window, GQA, ragged S
+    (1, 48, 1, 4, 16, 16, None, 5.0),       # softcap, G = 4
+    (1, 30, 2, 1, 24, 16, 10, 4.0),         # MLA's unbuilt dims, padded
+]
+
+
+@pytest.mark.parametrize("b,s,hkv,g,dk,dv,window,softcap", GRAD_CASES)
+def test_flash_gradients_match_jax_model_flash(b, s, hkv, g, dk, dv, window,
+                                               softcap):
+    """``FlashAttention`` (what ``flash_attention_fused`` runs when an
+    operand requires grad; on the CPU its backward is autograd over the
+    plain version, zero padding included) against ``jax.grad`` of the
+    reference model's flash (XLA's chunked flash, what its
+    ``attention_train`` differentiates), float32, at the reference's
+    3e-5 + 1e-4 |value| on q, k and v's gradients."""
+    import jax
+    q, k, v = _inputs(b, s, hkv, g, dk, dv, seed=s + dk)
+    w = np.random.default_rng(s).standard_normal(
+        (b, s, hkv, g, dv)).astype(np.float32)
+
+    def jax_loss(q, k, v):
+        out = jax_model_flash(q, k, v, window=window, softcap=softcap,
+                              q_chunk=16, kv_chunk=8)
+        return (out * w).sum()
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    ts = [t.requires_grad_() for t in _t(q, k, v)]
+    out = flash_attention_fused(*ts, window=window, softcap=softcap)
+    assert out.grad_fn is not None
+    (out * torch.from_numpy(w)).sum().backward()
+    for t, jg in zip(ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg),
+                                   atol=ATOL, rtol=RTOL)
+
+
+def test_plain_lse_is_the_rows_logsumexp():
+    """The plain version's ``return_lse`` (what the CUDA forward writes for
+    its backward) against a float64 oracle, masks and soft-cap included;
+    the output does not change with it."""
+    q, k, v = _inputs(1, 37, 1, 2, 8, 8, seed=4)
+    q2 = torch.from_numpy(q).permute(0, 2, 3, 1, 4).reshape(2, 37, 8)
+    k2 = torch.from_numpy(k).permute(0, 2, 1, 3).reshape(1, 37, 8)
+    v2 = torch.from_numpy(v).permute(0, 2, 1, 3).reshape(1, 37, 8)
+    kw = dict(causal=True, window=9, softcap=3.0)
+    out, lse = flash_attention_ref(q2, k2, v2, return_lse=True, **kw)
+    assert torch.equal(out, flash_attention_ref(q2, k2, v2, **kw))
+    sc = np.einsum("hqd,kd->hqk", q2.double().numpy(), k2[0].double().numpy())
+    sc = 3.0 * np.tanh(sc / 3.0)
+    i, j = np.arange(37)[:, None], np.arange(37)[None, :]
+    sc = np.where((i >= j) & (i - j < 9), sc, -np.inf)
+    want = np.log(np.exp(sc - sc.max(-1, keepdims=True)).sum(-1)) + \
+        sc.max(-1)
+    np.testing.assert_allclose(lse.numpy(), want, atol=1e-5, rtol=1e-6)
+
+
+def test_backward_op_registered_and_refuses_cpu_tensors():
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_cuda, flash_attention_bwd_ref)
+    assert "flash_attention_bwd" in registered_kernels()
+    op = get_kernel("flash_attention_bwd")
+    assert op.reference_body is flash_attention_bwd_ref
+    assert op.arg_dims == ((),) * 6 and op.out_dims == ()
+    q = torch.zeros(2, 16, 16)
+    k = torch.zeros(1, 16, 16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_bwd_cuda(q, k, k, q, q, torch.zeros(2, 16))
+
+
+def test_no_grad_path_skips_the_autograd_function():
+    """Inference (no operand requires grad, or grad disabled) goes straight
+    to the forward op: nothing is kept for a backward."""
+    ts = [t.requires_grad_() for t in _t(*_inputs(1, 20, 1, 2, 8, 8,
+                                                   seed=3))]
+    with torch.no_grad():
+        assert flash_attention_fused(*ts).grad_fn is None
+    assert flash_attention_fused(*(t.detach() for t in ts)).grad_fn is None
+    assert flash_attention_fused(*ts).grad_fn is not None
 
 
 @pytest.fixture

@@ -1,0 +1,203 @@
+"""The flash-attention backward kernel on the card (no JAX here).
+
+``flash_attention_bwd_cuda`` (``csrc/flash_attention_bwd.cu``) against its
+plain version, autograd over ``flash_attention_ref``, on every dtype pair,
+head dim and mask the forward takes, with GQA; the forward's log-sum-exp
+output, which must leave ``o`` bit for bit as it was; two runs giving the
+same bits; the ``FlashAttention`` autograd function reaching q, k and v
+through the model layout (MLA's zero padding included); and the scan
+kernels refusing operands that require grad.
+
+Tolerances, each relative to the largest value of the plain version's
+gradient: float32 throughout, 1e-4 (both sum in float32, in other orders,
+over up to a few hundred keys and heads); with bf16 anywhere, the
+operands are also cast to float32 and held at 1e-4 through the kernel's
+float32 build (one template for every dtype: the masks, the tiles and the
+GQA sums are checked there), and as given within 2**-5: the plain version
+rounds p and dP to bf16 before its products (the kernel keeps them in
+float32), and dP - Delta cancels, so one bf16 rounding (2**-8) can grow a
+few times in dS.
+
+Run on the card:
+``python -m pytest -q -m cuda tests/test_torch_flash_bwd_cuda.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.dispatch import launches
+from repro_torch.kernels.flash_attention.ops import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda,
+                                                     flash_attention_fused)
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_ref)
+
+F32_REL = 1e-4
+BF16_REL = 2**-5
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return torch.device("cuda", 0)
+
+
+def _operands(dev, bhkv, g, s, d, qk_dtype, v_dtype, seed, causal=True,
+              window=None, softcap=None):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((bhkv * g, s, d), np.float32) * d ** -0.5
+    k = rng.standard_normal((bhkv, s, d), np.float32)
+    v = rng.standard_normal((bhkv, s, d), np.float32)
+    do = rng.standard_normal((bhkv * g, s, d), np.float32)
+    q, k = (torch.from_numpy(a).to(dev, qk_dtype) for a in (q, k))
+    v = torch.from_numpy(v).to(dev, v_dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    do = torch.from_numpy(do).to(dev, qk_dtype)
+    return q, k, v, o, do, lse, kw
+
+
+def _rel_err(got, want) -> list:
+    return [float((a.float() - b.float()).abs().max()
+                  / b.float().abs().max().clamp_min(1e-30))
+            for a, b in zip(got, want)]
+
+
+CASES = [
+    # qk dtype, v dtype, D, G, S, causal, window, softcap
+    (torch.float32, torch.float32, 64, 1, 200, True, None, None),
+    (torch.float32, torch.float32, 16, 4, 129, True, 40, None),
+    (torch.float32, torch.float32, 32, 2, 77, False, None, 5.0),
+    (torch.float32, torch.float32, 128, 2, 300, True, 64, 5.0),
+    (torch.bfloat16, torch.bfloat16, 128, 4, 256, True, None, None),
+    (torch.bfloat16, torch.bfloat16, 256, 4, 301, True, 50, None),
+    (torch.float32, torch.bfloat16, 256, 4, 333, True, None, None),
+    (torch.float32, torch.bfloat16, 256, 4, 200, True, 64, 30.0),
+    (torch.bfloat16, torch.bfloat16, 32, 1, 100, False, 20, None),
+]
+
+
+@pytest.mark.parametrize("qk_dtype,v_dtype,d,g,s,causal,window,softcap",
+                         CASES)
+def test_bwd_kernel_matches_plain(dev, qk_dtype, v_dtype, d, g, s, causal,
+                                  window, softcap):
+    q, k, v, o, do, lse, kw = _operands(dev, 2, g, s, d, qk_dtype, v_dtype,
+                                        seed=s + d, causal=causal,
+                                        window=window, softcap=softcap)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    want = flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert bool(torch.isfinite(a.float()).all())
+    bf16 = torch.bfloat16 in (qk_dtype, v_dtype)
+    assert max(_rel_err(got, want)) <= (BF16_REL if bf16 else F32_REL), \
+        _rel_err(got, want)
+    if bf16:
+        f = [t.float() for t in (q, k, v)]
+        o32, lse32 = flash_attention_cuda(*f, return_lse=True, **kw)
+        got = flash_attention_bwd_cuda(*f, o32, do.float(), lse32, **kw)
+        want = flash_attention_bwd_ref(*f, o32, do.float(), lse32, **kw)
+        assert max(_rel_err(got, want)) <= F32_REL, _rel_err(got, want)
+
+
+@pytest.mark.parametrize("qk_dtype,v_dtype,d", [
+    (torch.float32, torch.float32, 64), (torch.bfloat16, torch.bfloat16, 256),
+    (torch.float32, torch.bfloat16, 256)])
+@pytest.mark.parametrize("window,softcap", [(None, None), (40, 5.0)])
+def test_lse_leaves_o_unchanged(dev, qk_dtype, v_dtype, d, window, softcap):
+    q, k, v, o, _, lse, kw = _operands(dev, 2, 4, 301, d, qk_dtype, v_dtype,
+                                       seed=3, window=window,
+                                       softcap=softcap)
+    plain_o = flash_attention_cuda(q, k, v, **kw)
+    _, want_lse = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, plain_o)
+    assert lse.shape == (q.shape[0], q.shape[1])
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+
+
+def test_bwd_is_deterministic(dev):
+    q, k, v, o, do, lse, kw = _operands(dev, 2, 4, 1000, 256, torch.float32,
+                                        torch.bfloat16, seed=9, window=128)
+    a = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    b = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dk,dv,g", [(64, 64, 2), (192, 128, 1)])
+def test_fused_gradients_reach_q_k_v(dev, dk, dv, g):
+    """Through the model layout and ``FlashAttention``: one forward and one
+    backward launch, and every operand gets the plain version's gradient
+    (MLA's q.k 192 / v 128 padded to 256 and cut back)."""
+    rng = np.random.default_rng(dk)
+    shapes = ((2, 150, 2, g, dk), (2, 150, 2, dk), (2, 150, 2, dv))
+    leaves = [torch.from_numpy(rng.standard_normal(sh, np.float32)).to(dev)
+              for sh in shapes]
+    leaves[0] = leaves[0] * dk ** -0.5
+    grads = []
+    for backend in (None, "ref"):
+        ts = [t.clone().requires_grad_() for t in leaves]
+        f0 = launches("flash_attention_fwd")
+        b0 = launches("flash_attention_bwd")
+        out = flash_attention_fused(*ts, window=64, backend=backend)
+        out.square().sum().backward()
+        if backend is None:
+            assert launches("flash_attention_fwd") == f0 + 1
+            assert launches("flash_attention_bwd") == b0 + 1
+        else:
+            assert launches("flash_attention_bwd") == b0
+        grads.append([t.grad for t in ts])
+    torch.cuda.synchronize()
+    assert all(g is not None for g in grads[0])
+    assert max(_rel_err(grads[0], grads[1])) <= F32_REL
+
+
+def test_scans_refuse_operands_that_require_grad(dev):
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.wkv6.ops import wkv6
+    b, s, di, n = 1, 8, 16, 16
+    z = lambda *sh: torch.zeros(sh, device=dev)
+    xi = z(b, s, di).requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        selective_scan(xi, z(b, s, di), z(b, s, n), z(b, s, n), z(di, n),
+                       z(b, di, n))
+    with torch.no_grad():   # inference still runs the kernel
+        selective_scan(xi, z(b, s, di), z(b, s, n), z(b, s, n), z(di, n),
+                       z(b, di, n))
+    h, hd = 2, 64
+    r = z(b, s, h, hd).requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        wkv6(r, z(b, s, h, hd), z(b, s, h, hd), z(b, s, h, hd), z(h, hd),
+             z(b, h, hd, hd))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-v0.1-52b"])
+def test_recurrent_loss_refuses_to_train_on_the_card(dev, arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, loss_fn
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, 0, device=dev)
+    for t in _leaves(params):
+        t.requires_grad_()
+    toks = torch.randint(0, cfg.vocab_size, (1, 16), device=dev)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        loss_fn(cfg, params, batch)[0].backward()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree

@@ -2,10 +2,11 @@
 betweenness centrality, a master killed and resumed from its journal, a
 recorded run replayed and calibrated, open-loop traffic, a DAG, the
 examples, the model's prefill, decode and serving loop, a MoE and an MLA
-prefill, and the recurrent families' prefill and decode, rwkv6's serving
-loop included) with jax and the reference package unimportable, no source
-file of it (nor ``chip_smoke.py``) imports either, and
-``device=None`` never falls back to the CPU."""
+prefill, the recurrent families' prefill and decode, rwkv6's serving
+loop included, and training with a checkpoint and a resume) with jax, the
+reference package and ``ml_dtypes`` unimportable, no source file of it
+(nor ``chip_smoke.py``) imports any of them, and ``device=None`` never
+falls back to the CPU."""
 import json
 import os
 import re
@@ -37,7 +38,7 @@ import json, sys
 
 class _Unimportable:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"):
             raise ModuleNotFoundError(f"No module named {name!r}")
         return None
 
@@ -61,6 +62,8 @@ res["jax"] = sorted(k for k in sys.modules if k == "jax" or
                     k.startswith("jax."))
 res["repro"] = sorted(k for k in sys.modules if k == "repro" or
                       k.startswith("repro."))
+res["ml_dtypes"] = sorted(k for k in sys.modules if k == "ml_dtypes" or
+                          k.startswith("ml_dtypes."))
 print(json.dumps(res))
 """
 
@@ -176,6 +179,18 @@ res["sim_completed"] = serve_traffic_sim(rate=2.0, horizon_s=10.0)[
 """, lambda r: (r["replayed"][0] == r["replayed"][1] > 0 and
                 r["fitted"] == "fitted" and r["dag_nodes"] == 17 and
                 r["sim_completed"] > 0)),
+    "train_checkpoint_resume": (r"""
+import tempfile
+from repro_torch.launch.train import train
+with tempfile.TemporaryDirectory() as d:
+    a = train("gemma3-1b", steps=2, global_batch=2, seq_len=16, ckpt_dir=d,
+              ckpt_every=2, log_every=1, device="cpu")
+    b = train("gemma3-1b", steps=3, global_batch=2, seq_len=16, ckpt_dir=d,
+              ckpt_every=100, log_every=1, device="cpu")
+res["losses"] = [l for _, l in a["losses"] + b["losses"]]
+res["resumed"] = [b["start_step"], b["steps"]]
+""", lambda r: (len(r["losses"]) == 3 and r["resumed"] == [2, 1]
+                and all(l == l and l > 0 for l in r["losses"]))),
     "examples": (r"""
 from repro_torch.examples import betweenness_centrality, quickstart
 import repro_torch.examples.mandelbrot_render
@@ -202,11 +217,13 @@ def test_main_path_runs_without_jax_or_repro(path):
     assert holds(res), res
     assert res["jax"] == []
     assert res["repro"] == []
+    assert res["ml_dtypes"] == []
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|repro)\b(?!_torch)|from\s+(jax|repro)\b(?!_torch)"
-    r"[\w.]*\s+import)", re.M)
+    r"^\s*(import\s+(jax|jaxlib|repro|ml_dtypes)\b(?!_torch)|"
+    r"from\s+(jax|jaxlib|repro|ml_dtypes)\b(?!_torch)[\w.]*\s+import)",
+    re.M)
 
 
 def _port_sources():
@@ -225,7 +242,9 @@ def test_static_scan_finds_no_jax_or_repro_import():
 def test_static_scan_pattern_catches_imports():
     for line in ("import jax", "import jax.numpy as jnp", "from jax import lax",
                  "from repro.core import run_irregular", "import repro",
-                 "    from repro.kernels.dispatch import bucket"):
+                 "    from repro.kernels.dispatch import bucket",
+                 "import ml_dtypes", "    import ml_dtypes  # bf16",
+                 "from ml_dtypes import bfloat16", "import jaxlib"):
         assert _FORBIDDEN.search(line), line
     for line in ("from repro_torch.core import make_pool",
                  "import repro_torch", "# import jax in a comment"):

@@ -1,11 +1,13 @@
 """One model phase of ``chip_smoke.py`` alone, to iterate on it.
 
-    python tools/model_phase.py {model,families,recurrent}
+    python tools/model_phase.py {model,families,recurrent,training}
 
 runs the smoke's environment and build phases, then ``phase_model``
 (gemma3-1b), ``phase_model_families`` (deepseek-moe-16b, deepseek-v3 and
-the dense and frontend configs) or ``phase_recurrent_families`` (rwkv6-1.6b
-and jamba's period) on the card, with the smoke's settings, and writes
+the dense and frontend configs), ``phase_recurrent_families`` (rwkv6-1.6b
+and jamba's period) or ``phase_training`` (the flash backward kernel,
+gemma3-1b's gradient and its training killed and resumed, MoE training,
+the ``train_lm`` twin) on the card, with the smoke's settings, and writes
 the phase's record to ``chiprun_out/<phase>.json``.  Needs a CUDA card and
 ``nvcc``; the recurrent phase takes some 2 minutes with the build.
 """
@@ -20,7 +22,8 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 PHASES = {"model": cs.phase_model, "families": cs.phase_model_families,
-          "recurrent": cs.phase_recurrent_families}
+          "recurrent": cs.phase_recurrent_families,
+          "training": cs.phase_training}
 name = sys.argv[1] if len(sys.argv) > 1 else "recurrent"
 if name not in PHASES or not torch.cuda.is_available():
     sys.exit(f"usage: python tools/model_phase.py {{{','.join(PHASES)}}} "

@@ -185,11 +185,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    float32 case with a window and a soft-cap: dQ, dK, dV within
    ``FLASH_BWD_TOL`` of their largest values as given and within 1e-4
    cast to float32, two launches bit-equal, kernel, plain and SDPA-backward
-   times (median of 5) and the bound; the forward's output bit-equal with
-   the log-sum-exp on; ``loss_fn`` and every gradient of gemma3-1b at full
-   width and depth, kernels against ``backend="ref"`` (loss 1e-3, norm
-   1 %, leaf cosine 0.99); gemma3-1b trained at full width and depth on 2
-   x 4,096 tokens (``train_4k``'s batch cut from 256; 4 does not fit):
+   times (median of 5), the bound (all five products at the bf16 rate)
+   and the floor in the products' own types; the forward's output
+   bit-equal with the log-sum-exp on; ``loss_fn`` and every gradient of
+   gemma3-1b at full width and depth, kernels against ``backend="ref"``
+   (loss 1e-3, norm 1e-3, every leaf's cosine 0.999); gemma3-1b trained at
+   full width and depth on 2 x 4,096 tokens (``train_4k``'s batch cut
+   from 256; 4 does not fit):
    run (a) steps 0-5 of a 12-step schedule with a checkpoint at 6
    (restored to the host bit-equal), run (b) resumed there to 12, run (c)
    unbroken; (b)'s losses must be (c)'s bit for bit, the loss must fall,
@@ -502,10 +504,10 @@ def phase_environment() -> str:
 def phase_build() -> dict:
     """Builds every kernel, then reads the machine code: the UTS library's
     SHA-1 body by pipe (``sass_pipes``) and the card's top SM clock, for
-    the UTS kernels' integer bound; the flash library's products must be
-    tensor-core instructions (HGMMA, Hopper's wgmma), and the FFMA count
-    (the CUDA cores' fused multiply-adds, which the softmax and the
-    float32 splits still use) stands beside it."""
+    the UTS kernels' integer bound; the flash libraries' (forward and
+    backward) products must be tensor-core instructions (HGMMA, Hopper's
+    wgmma), and the FFMA count (the CUDA cores' fused multiply-adds, which
+    the softmax and the float32 splits still use) stands beside it."""
     import shutil
 
     import torch
@@ -547,18 +549,23 @@ def phase_build() -> dict:
         f"{sha1['all']} instructions, {sha1['int']} on the INT32 pipe, "
         f"{sha1['fma']} on the FMA pipe; {sha1['sms']} SMs at up to "
         f"{sha1['sm_clock_hz'] / 1e6:.0f} MHz")
-    sass = disassemble("flash_attention")
-    counts = {op: len(re.findall(rf"\b{op}[.\s]", sass))
-              for op in ("HGMMA", "FFMA")}
+    flash_sass = {}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        sass = disassemble(name)
+        counts = {op: len(re.findall(rf"\b{op}[.\s]", sass))
+                  for op in ("HGMMA", "FFMA")}
+        log(f"[build] {name} SASS: {counts['HGMMA']} HGMMA, "
+            f"{counts['FFMA']} FFMA instructions")
+        if counts["HGMMA"] == 0:
+            raise AssertionError(f"{name}: no HGMMA in its machine code; "
+                                 f"its products are not on the tensor cores")
+        flash_sass[name] = counts
     tiles = kernel_tiles()
-    log(f"[build] flash_attention SASS: {counts['HGMMA']} HGMMA, "
-        f"{counts['FFMA']} FFMA instructions; tiles (query rows, keys) "
-        f"{tiles}")
-    if counts["HGMMA"] == 0:
-        raise AssertionError("flash_attention: no HGMMA in its machine code; "
-                             "its products are not on the tensor cores")
-    return {"flash_sass": counts, "flash_tiles": list(tiles),
-            "sha1_sass": sha1, "bc_level_spill_bytes": sum(spills)}
+    log(f"[build] flash_attention tiles (query rows, keys) {tiles}")
+    return {"flash_sass": flash_sass["flash_attention"],
+            "flash_bwd_sass": flash_sass["flash_attention_bwd"],
+            "flash_tiles": list(tiles), "sha1_sass": sha1,
+            "bc_level_spill_bytes": sum(spills)}
 
 
 def _hashlib_digest(parent: list, ix: int) -> list:
@@ -3743,13 +3750,14 @@ def phase_flash_fixed(dev) -> list:
     return out
 
 
-def device_busy(fn, label: str) -> dict:
+def device_busy(fn, label: str, groups: dict = None) -> dict:
     """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA activities)
     and sum the device time of every kernel: the device's busy time in
-    that window, its idle share of the window's wall time, and the
-    largest kernels by self device time.  The profiler slows the host
-    side, so where the host sets the pace the idle share is an upper
-    bound."""
+    that window, its idle share of the window's wall time, the largest
+    kernels by self device time, and with ``groups`` ({name: substrings})
+    the device time of the kernels whose names hold one of a group's
+    substrings.  The profiler slows the host side, so where the host sets
+    the pace the idle share is an upper bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3772,12 +3780,19 @@ def device_busy(fn, label: str) -> dict:
            "device_calls": sum(e.count for e in events),
            "top": [{"kernel": e.key[:80], "ms": e.self_device_time_total
                     / 1e3, "calls": e.count} for e in top]}
+    if groups:
+        rec["groups_ms"] = {
+            name: sum(e.self_device_time_total for e in events
+                      if any(x in e.key for x in subs)) / 1e3
+            for name, subs in groups.items()}
     log(f"[profile] {label}: device busy {busy_ms:.3f} ms in "
         f"{rec['device_calls']} kernels, wall under the profiler "
         f"{wall * 1e3:.3f} ms, idle share {rec['idle_share']:.3f}; "
         f"largest: " + "; ".join(
             f"{t['kernel'][:40]} {t['ms']:.3f} ms x{t['calls']}"
-            for t in rec["top"][:4]))
+            for t in rec["top"][:4]) + "".join(
+            f"; {n} {ms:.3f} ms ({ms / busy_ms:.3f} of busy)"
+            for n, ms in rec.get("groups_ms", {}).items()))
     if busy_ms <= 0:
         raise AssertionError(f"{label}: the profiler saw no device time")
     return rec
@@ -4481,6 +4496,21 @@ def flash_bwd_bound(q2, k2, v2, causal: bool, window) -> tuple:
             "operations", flops)
 
 
+def flash_bwd_floor(q2, k2, v2, causal: bool, window) -> tuple:
+    """The backward's floor with each product priced in the type it must
+    keep (``_product_s``): q.k^T, dQ = dS k and dK = dS^T q in q's and k's
+    type (three TF32 passes for float32), dP = dO v^T and dV = p^T dO in
+    v's; and the same with the dQ pass's recomputation of q.k^T and dP.
+    Returns (ms, ms with the recomputation); beside ``flash_bwd_bound``,
+    which prices all five at the bf16 rate."""
+    bhg, sq, dk = q2.shape
+    dv = v2.shape[2]
+    pairs = bhg * live_pairs(sq, k2.shape[1], causal, window)
+    qk = _product_s(pairs * 2 * dk, q2.dtype)
+    pv = _product_s(pairs * 2 * dv, v2.dtype)
+    return (3 * qk + 2 * pv) * 1e3, (4 * qk + 3 * pv) * 1e3
+
+
 def sdpa_backward_ms(q2, k2, v2, dout, causal: bool, window) -> float:
     """The library yardstick: autograd through
     ``scaled_dot_product_attention`` in bf16 (K and V repeated to the query
@@ -4552,7 +4582,10 @@ def check_flash_bwd(args, static, label: str, time_it: bool = True) -> dict:
         raise AssertionError(f"flash_attention_bwd {label}: {rec}")
     b_ms, b_by, flops = flash_bwd_bound(q2, k2, v2, kw["causal"],
                                         kw["window"])
-    rec.update(bound_ms=b_ms, bound_by=b_by, flops=flops)
+    floor, floor_two_pass = flash_bwd_floor(q2, k2, v2, kw["causal"],
+                                            kw["window"])
+    rec.update(bound_ms=b_ms, bound_by=b_by, flops=flops, floor_ms=floor,
+               floor_two_pass_ms=floor_two_pass)
     if time_it:
         rec["ms"] = cuda_time_ms(
             lambda: flash_attention_bwd_cuda(*args, **kw), reps=5)
@@ -4563,7 +4596,9 @@ def check_flash_bwd(args, static, label: str, time_it: bool = True) -> dict:
             if kw["softcap"] is None else None
         log(f"[train] flash bwd {label}: kernel {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.4f} ms, SDPA backward "
-            f"{rec['library_ms']} ms, bound {b_ms:.4f} ms ({b_by})")
+            f"{rec['library_ms']} ms, bound {b_ms:.4f} ms ({b_by}), floor "
+            f"in the products' types {floor:.4f} ms ({floor_two_pass:.4f} "
+            f"with the dQ pass's recomputation)")
     torch.cuda.empty_cache()
     return rec
 
@@ -4784,7 +4819,10 @@ def train_kill_resume(dev, paths: dict) -> dict:
     def two_steps():
         for s in (KILL_AT, KILL_AT + 1):
             plan.step(params, opt, data.batch(s))
-    rec["profile"] = device_busy(two_steps, f"{ARCH} 2 train steps")
+    rec["profile"] = device_busy(
+        two_steps, f"{ARCH} 2 train steps",
+        groups={"flash_attention_bwd": ("flash_bwd_",),
+                "flash_attention_fwd": ("flash_fwd_kernel",)})
     del params, opt, plan
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -5305,11 +5343,13 @@ def main() -> int:
             **training["launches"]["flash_attention_bwd"]},
         **{k: bwd["global"][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms", "shape",
-                                         "deterministic")},
+                                         "deterministic", "floor_ms",
+                                         "floor_two_pass_ms")},
         **{f"{which}_layer" if which != "float32" else "float32_case": {
             k: bwd[which].get(k) for k in (
                 "shape", "window", "softcap", "ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms", "max_abs_err", "rel_err_float32")}
+                "bound_by", "floor_ms", "floor_two_pass_ms", "library_ms",
+                "max_abs_err", "rel_err_float32")}
            for which in ("local", "moe", "float32")},
         "lse_leaves_o": training["lse_leaves_o"],
         "max_abs_err_is": "max |err| / max |value| of each of dQ, dK, dV"}

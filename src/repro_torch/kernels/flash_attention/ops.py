@@ -17,11 +17,14 @@ goes through :class:`FlashAttention`, an autograd function whose forward
 runs op ``flash_attention_fwd`` with the rows' log-sum-exp on (the CUDA
 kernel writes it beside ``o``, which it leaves bit for bit as it is) and
 whose backward runs op ``flash_attention_bwd``: on CUDA tensors the
-hand-written backward kernel ``csrc/flash_attention_bwd.cu`` (three
-launches, counted once), on the CPU autograd over the plain forward.  The
-JAX package has no backward kernel (its training path is XLA's autodiff
-of a chunked flash, ``repro.models.attention.attention_train``); without
-this function the CUDA forward's output would carry no gradient at all.
+hand-written backward kernel ``csrc/flash_attention_bwd.cu`` (wgmma and
+TMA; a Delta pass, a dK/dV pass, with GQA a pass summing its per-head
+float32 partials in a fixed order, and a dQ pass: deterministic, counted
+as one launch; its workspace is allocated here), on the CPU autograd over
+the plain forward.  The JAX package has no backward kernel (its training
+path is XLA's autodiff of a chunked flash,
+``repro.models.attention.attention_train``); without this function the
+CUDA forward's output would carry no gradient at all.
 Under ``torch.utils.checkpoint`` the forward runs twice and the backward
 once a layer.
 
@@ -85,6 +88,8 @@ def _bwd_lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    lib.flash_attention_bwd_workspace.argtypes = [ctypes.c_int] * 7
+    lib.flash_attention_bwd_workspace.restype = ctypes.c_longlong
     return lib
 
 
@@ -193,21 +198,26 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                                   ("dout", dout, q.dtype, q.shape),
                                   ("lse", lse, torch.float32, (bhg, sq))):
         if t.device != q.device or t.dtype != dtype or \
-                tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+                tuple(t.shape) != tuple(shape) or not t.is_contiguous() \
+                or t.data_ptr() % 16:
             raise ValueError(
-                f"flash_attention_bwd_cuda: {name} must be a contiguous "
-                f"{dtype} {tuple(shape)} tensor on {q.device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+                f"flash_attention_bwd_cuda: {name} must be a contiguous, "
+                f"16-byte aligned {dtype} {tuple(shape)} tensor on "
+                f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if sq == 0 or skv == 0:
         raise ValueError("flash_attention_bwd_cuda: empty sequence")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((bhg, sq), dtype=torch.float32, device=q.device)
     lib = _bwd_lib()
+    # Delta, dO rounded to v's dtype (float32 q with bf16 v) and, with GQA,
+    # the float32 partial sums of dK and dV over the query heads
+    n_work = lib.flash_attention_bwd_workspace(
+        bhg, bhg // bhkv, sq, skv, d, _DTYPES[q.dtype], _DTYPES[v.dtype])
+    work = torch.empty(n_work, dtype=torch.uint8, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), bhg, bhg // bhkv, sq, skv, d,
             _DTYPES[q.dtype], _DTYPES[v.dtype], int(causal),
             -1 if window is None else int(window),

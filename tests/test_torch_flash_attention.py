@@ -311,6 +311,85 @@ def test_single_pass_tf32_misses_the_float32_tolerance(main_path_scale):
     assert float(((got - want).abs() / allowed).max()) > 1
 
 
+def _product(a, b, passes: int):
+    """a @ b in float64 as the backward kernel forms a float32 product: one
+    TF32 pass (both operands rounded), or three (hi.lo + lo.hi + hi.hi)."""
+    if passes == 1:
+        return _tf32_rna(a).double() @ _tf32_rna(b).double()
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    ah, bh, al, bl = (t.double() for t in (ah, bh, al, bl))
+    return ah @ bl + al @ bh + ah @ bh
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).double()
+
+
+def _emulated_backward(q, k, v, o, dout, *, mixed: bool, grad_passes: int):
+    """(dq, dk, dv) of causal attention on one KV head with the backward
+    kernel's rounding, the rest exact (float64): s = q.k^T in three TF32
+    passes; p = exp(s - lse); with ``mixed`` (bf16 v) dO and p rounded to
+    bf16 for dP = dO v^T and dV = p^T dO, which are then exact, else those
+    two in three TF32 passes; Delta over the dO that dP takes; dS = p (dP -
+    Delta); dQ = dS k and dK = dS^T q (summed over the G heads) in
+    ``grad_passes`` TF32 passes."""
+    kt, vt = k[0], v[0].float()
+    s = _product(q, kt.T, 3)
+    n = s.shape[-1]
+    live = torch.ones(n, n, dtype=torch.bool).tril()
+    s = torch.where(live, s, -torch.inf)
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    if mixed:
+        do = _bf16(dout)
+        dp = do @ vt.double().T
+        dv = (_bf16(p).transpose(1, 2) @ do).sum(0)
+    else:
+        do = dout.double()
+        dp = _product(dout, vt.T, 3)
+        dv = _product(p.float().transpose(1, 2), dout, 3).sum(0)
+    ds = p * (dp - (do * o.double()).sum(-1, keepdim=True))
+    dq = _product(ds.float(), kt, grad_passes)
+    dk = _product(ds.float().transpose(1, 2), q, grad_passes).sum(0)
+    return dq, dk[None], dv[None]
+
+
+@pytest.mark.parametrize("case,mixed,grad_passes,allowed", [
+    ("float32", False, 3, 1e-4),
+    ("float32 q/k, bf16 v", True, 3, 2**-5),
+    ("float32, one TF32 pass for dQ and dK", False, 1, None),
+])
+def test_backward_precision_plan(main_path_scale, case, mixed, grad_passes,
+                                 allowed):
+    """The backward kernel's precision plan, emulated at the main path's
+    scale (causal, S 1,024, D 256, G 4), against autograd over the float32
+    plain version, each of dQ, dK, dV by its largest |value|: within the
+    card tests' float32 tolerance (1e-4) where every product is three TF32
+    passes, within the bf16 one (2**-5) in the model's build (float32 q
+    and k, bf16 v), which rounds p and dO to bf16 only where the plain
+    version does (dV and dP).  With one TF32 pass for dQ and dK instead of
+    three, the float32 case misses 1e-4 (dQ 5.1e-4, dK 2.8e-4 here, against
+    7e-7 with three; the model's build reads 3.4e-3 either way, its bf16
+    dP and dV's rounding): why the kernel pays three."""
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_ref
+    q, k, v, _, _ = main_path_scale
+    if mixed:
+        v = v.to(torch.bfloat16)
+    dout = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        q.shape).astype(np.float32))
+    o, lse = flash_attention_ref(q, k, v, causal=True, return_lse=True)
+    want = flash_attention_bwd_ref(q, k, v, o, dout, lse, causal=True)
+    got = _emulated_backward(q, k, v, o, dout, mixed=mixed,
+                             grad_passes=grad_passes)
+    err = [float((a - b.double()).abs().max() / b.double().abs().max())
+           for a, b in zip(got, want)]
+    if allowed is not None:
+        assert max(err) <= allowed, err
+    else:
+        assert min(err[:2]) > 1e-4, err
+
+
 def test_tf32_rounding_is_to_nearest_ties_away():
     one = 1 + 2.0 ** -10                     # a TF32 value: 10 mantissa bits
     x = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12,

@@ -18,6 +18,11 @@ rounds p and dP to bf16 before its products (the kernel keeps them in
 float32), and dP - Delta cancels, so one bf16 rounding (2**-8) can grow a
 few times in dS.
 
+The cases take the kernel's tile edges (63, 64, 65 and 129 rows, and one
+query row over 129 keys; G 1, 4 and 8; windows across tiles) and deepseek-moe-16b's layer shape; the
+determinism case also runs at gemma3-1b's global layer, where dK and dV
+are summed over G = 4 query heads' float32 partials.
+
 Run on the card:
 ``python -m pytest -q -m cuda tests/test_torch_flash_bwd_cuda.py``.
 """
@@ -48,11 +53,12 @@ def dev():
 
 
 def _operands(dev, bhkv, g, s, d, qk_dtype, v_dtype, seed, causal=True,
-              window=None, softcap=None):
+              window=None, softcap=None, skv=None):
     rng = np.random.default_rng(seed)
+    skv = s if skv is None else skv
     q = rng.standard_normal((bhkv * g, s, d), np.float32) * d ** -0.5
-    k = rng.standard_normal((bhkv, s, d), np.float32)
-    v = rng.standard_normal((bhkv, s, d), np.float32)
+    k = rng.standard_normal((bhkv, skv, d), np.float32)
+    v = rng.standard_normal((bhkv, skv, d), np.float32)
     do = rng.standard_normal((bhkv * g, s, d), np.float32)
     q, k = (torch.from_numpy(a).to(dev, qk_dtype) for a in (q, k))
     v = torch.from_numpy(v).to(dev, v_dtype)
@@ -79,6 +85,17 @@ CASES = [
     (torch.float32, torch.bfloat16, 256, 4, 333, True, None, None),
     (torch.float32, torch.bfloat16, 256, 4, 200, True, 64, 30.0),
     (torch.bfloat16, torch.bfloat16, 32, 1, 100, False, 20, None),
+    # the edges of the 64-row fixed tiles and the 16-64-row streamed ones
+    (torch.float32, torch.bfloat16, 128, 1, 63, True, None, None),
+    (torch.float32, torch.bfloat16, 256, 8, 64, True, None, None),
+    (torch.float32, torch.bfloat16, 64, 4, 65, False, None, None),
+    (torch.bfloat16, torch.bfloat16, 128, 8, 129, True, None, 5.0),
+    (torch.float32, torch.float32, 256, 1, 129, True, None, None),
+    # deepseek-moe-16b's layer shape (16 heads of D 128, G 1)
+    (torch.float32, torch.bfloat16, 128, 1, 1024, True, None, None),
+    # windows that cross the tiles' edges
+    (torch.float32, torch.bfloat16, 256, 4, 300, True, 100, None),
+    (torch.float32, torch.float32, 64, 8, 257, True, 33, 4.0),
 ]
 
 
@@ -106,6 +123,25 @@ def test_bwd_kernel_matches_plain(dev, qk_dtype, v_dtype, d, g, s, causal,
         assert max(_rel_err(got, want)) <= F32_REL, _rel_err(got, want)
 
 
+@pytest.mark.parametrize("d,g", [(256, 4), (128, 1)])
+def test_bwd_kernel_one_query_row(dev, d, g):
+    """One query row (Sq = 1, the smallest tile edge) over 129 keys, without
+    a causal mask: at Sq = Skv = 1 softmax over one key makes dQ and dK
+    exactly 0, where the relative check has no scale."""
+    q, k, v, o, do, lse, kw = _operands(dev, 2, g, 1, d, torch.float32,
+                                        torch.bfloat16, seed=d, causal=False,
+                                        skv=129)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    want = flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert max(_rel_err(got, want)) <= BF16_REL, _rel_err(got, want)
+    f = [t.float() for t in (q, k, v)]
+    o32, lse32 = flash_attention_cuda(*f, return_lse=True, **kw)
+    got = flash_attention_bwd_cuda(*f, o32, do.float(), lse32, **kw)
+    want = flash_attention_bwd_ref(*f, o32, do.float(), lse32, **kw)
+    assert max(_rel_err(got, want)) <= F32_REL, _rel_err(got, want)
+
+
 @pytest.mark.parametrize("qk_dtype,v_dtype,d", [
     (torch.float32, torch.float32, 64), (torch.bfloat16, torch.bfloat16, 256),
     (torch.float32, torch.bfloat16, 256)])
@@ -122,9 +158,13 @@ def test_lse_leaves_o_unchanged(dev, qk_dtype, v_dtype, d, window, softcap):
     torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
 
 
-def test_bwd_is_deterministic(dev):
-    q, k, v, o, do, lse, kw = _operands(dev, 2, 4, 1000, 256, torch.float32,
-                                        torch.bfloat16, seed=9, window=128)
+@pytest.mark.parametrize("bhkv,s,window", [
+    (2, 1000, 128),
+    # gemma3-1b's global layer at B 1: G = 4 partial sums of dK and dV
+    (1, 4096, None)])
+def test_bwd_is_deterministic(dev, bhkv, s, window):
+    q, k, v, o, do, lse, kw = _operands(dev, bhkv, 4, s, 256, torch.float32,
+                                        torch.bfloat16, seed=9, window=window)
     a = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
     b = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
     torch.cuda.synchronize()

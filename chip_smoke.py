@@ -198,9 +198,35 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    every step launch 52 forward and 26 backward flash kernels; step time,
    tokens/s, ``mfu``, peak memory, two steps under the profiler,
    checkpoint bytes and seconds; deepseek-moe-16b cut to 2 layers trained
-   3 steps (finite, ``router_aux``, every expert that got pairs a finite
-   non-zero gradient); the ``train_lm`` twin at its defaults (the loss
-   falls); rwkv6's and jamba's training refused on the card;
+   3 steps (finite, ``router_aux`` > 0, every expert that got pairs a
+   finite non-zero gradient); the ``train_lm`` twin at its defaults (the
+   loss falls); then the recurrent families (``train_recurrent``): the
+   scans' backward kernels (``csrc/wkv6_bwd.cu``,
+   ``csrc/selective_scan_bwd.cu``) against autograd over their plain
+   forwards on the operands their ops were given while a whole-model
+   gradient ran (an rwkv6-1.6b layer, B 1, S 4,096; a jamba Mamba layer
+   from the jamba steps below) and at small ragged and unaligned shapes:
+   each gradient within ``SCAN_BWD_TOL`` of its largest value, two
+   launches bit-equal, the forward's output, final state and checkpoints
+   the same bits with its checkpoints on and off, kernel time (median of
+   5), the plain backward's (one run: autograd over the plain loop takes
+   some 9-11 s at 4,096 steps) and the bound (``scan_bwd_bound``);
+   rwkv6-1.6b's whole model at full width and depth and jamba at full
+   width cut to its blocks 2 and 4 (Mamba + MLP, attention + MLP; no MoE, whose routing
+   flips between kernel and plain version), each at B 1 x 1,024 (the
+   plain scans at 4,096 would take minutes) with float32 weights (with
+   bf16 the gradient is chaotic at float32 rounding's scale:
+   ``tools/scan_grad_control.py``), kernels against ``backend="ref"``
+   under gemma3-1b's gate; rwkv6-1.6b at full width and
+   depth trained 8 steps of 4 x 4,096 (``train_4k``'s batch cut from 256;
+   the loss falls, 48 ``wkv6`` and 24 ``wkv6_bwd`` launches a step, step
+   0's gradients taken twice bit-equal, step time, tokens/s, ``mfu``, peak
+   memory, two steps under the profiler); jamba at full width cut to its
+   blocks 3 and 4 (Mamba + MoE, attention + MLP; the 8-layer period's
+   13.3e9 parameters with AdamW do not fit) trained 3 steps of 1 x 4,096
+   (finite, ``router_aux`` > 0, 2 ``selective_scan``, 1
+   ``selective_scan_bwd``, 2 flash forward and 1 flash backward launches
+   a step, every expert that got pairs a finite non-zero gradient);
 14. every process the run started is stopped and waited for (the
    resource tracker of the BC oracle's spawn pool, which would outlive
    the script, and any other left over, listed in the report), then one
@@ -342,6 +368,13 @@ KERNEL_SOURCES = {
                        "none (XLA lax.scan, src/repro/models/mamba.py:93)"),
     "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
              "none (XLA lax.scan, src/repro/models/rwkv6.py:106)"),
+    "selective_scan_bwd": ("src/repro_torch/kernels/csrc/"
+                           "selective_scan_bwd.cu",
+                           "none (XLA autodiff of lax.scan, "
+                           "src/repro/models/mamba.py:93)"),
+    "wkv6_bwd": ("src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+                 "none (XLA autodiff of lax.scan, "
+                 "src/repro/models/rwkv6.py:106)"),
 }
 
 
@@ -3992,7 +4025,8 @@ def family_inputs(cfg, n: int, dev, seed: int):
 
 #: the kernels whose launches every path of the model phases counts
 MODEL_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
-                 "selective_scan", "wkv6")
+                 "selective_scan", "selective_scan_bwd", "wkv6",
+                 "wkv6_bwd")
 
 
 def counted_path(name: str, fn, want: dict, paths: dict) -> tuple:
@@ -4657,12 +4691,15 @@ def grad_gap(kernel: tuple, plain: tuple) -> dict:
     return rec
 
 
-def compare_grads(cfg, params, batch) -> dict:
-    """``loss_fn`` and its gradients with the kernels (flash forward and
-    backward) against the plain versions forced, on the same weights."""
+def compare_grads(cfg, params, batch, label: str = ARCH) -> dict:
+    """``loss_fn`` and its gradients with the kernels (flash and the scans,
+    forward and backward) against the plain versions forced, on the same
+    weights."""
     rec = grad_gap(model_grads(cfg, params, batch, None),
                    model_grads(cfg, params, batch, "ref"))
-    log(f"[train] whole-model gradient, kernels vs plain: loss "
+    rec["batch"] = list(next(iter(batch.values())).shape)
+    log(f"[train] {label} whole-model gradient {rec['batch']}, kernels vs "
+        f"plain: loss "
         f"{rec['loss_kernel']:.6f} vs {rec['loss_plain']:.6f} "
         f"({rec['loss_rel_err']:.2e}, allowed {GRAD_LOSS_RTOL:.0e}); grad "
         f"norm {rec['grad_norm_kernel']:.6f} vs {rec['grad_norm_plain']:.6f} "
@@ -4670,7 +4707,7 @@ def compare_grads(cfg, params, batch) -> dict:
         f"leaf cosine {rec['min_cosine']:.6f} ({rec['min_cosine_leaf']}; "
         f"allowed >= {GRAD_MIN_COS}) over {rec['leaves']} leaves")
     if not grad_gate_passes(rec):
-        raise AssertionError(f"whole-model gradient: {rec}")
+        raise AssertionError(f"{label} whole-model gradient: {rec}")
     return rec
 
 
@@ -4829,22 +4866,21 @@ def train_kill_resume(dev, paths: dict) -> dict:
     return rec
 
 
-def train_moe(dev, paths: dict, tap) -> dict:
-    """deepseek-moe-16b at full width, cut to one dense and one MoE layer:
-    3 train steps, then the gradient of every expert that got pairs."""
-    import dataclasses
+def train_moe(dev, paths: dict, tap, arch: str, cfg, n_steps: int,
+              per_step: dict) -> dict:
+    """``arch`` at full width, cut to ``cfg``'s layers (one of them MoE):
+    ``n_steps`` train steps of 1 x 4,096, each launching ``per_step``'s
+    kernels that often, with ``tap`` open; then the gradient of every
+    expert that got pairs."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch.steps import batch_to, plan_cell
-    from repro_torch.models import Stage, init_params, loss_fn
+    from repro_torch.models import init_params, loss_fn
     from repro_torch.optim import AdamWConfig, init_opt_state
-    full = get_config(MOE_ARCH)
-    cfg = dataclasses.replace(full, stages=tuple(
-        Stage(1, st.pattern) for st in full.stages))
     params = init_params(cfg, 0, device=dev)
-    opt_cfg = AdamWConfig(peak_lr=TRAIN_LR, total_steps=MOE_TRAIN_STEPS,
+    opt_cfg = AdamWConfig(peak_lr=TRAIN_LR, total_steps=n_steps,
                           warmup_steps=1)
     opt = init_opt_state(params, opt_cfg)
     plan = plan_cell(cfg, ShapeSpec("train", TRAIN_S, 1, "train"),
@@ -4854,17 +4890,16 @@ def train_moe(dev, paths: dict, tap) -> dict:
     metrics = []
 
     def steps():
-        for s in range(MOE_TRAIN_STEPS):
+        for s in range(n_steps):
             _, _, m = plan.step(params, opt, data.batch(s))
             metrics.append({k: float(v) for k, v in m.items()})
     with tap:
-        counted_path(f"{MOE_ARCH} train, 2 layers", steps, {
-            "flash_attention_fwd": 2 * cfg.n_layers * MOE_TRAIN_STEPS,
-            "flash_attention_bwd": cfg.n_layers * MOE_TRAIN_STEPS}, paths)
-    if not all("router_aux" in m and all(v == v and abs(v) != float("inf")
-                                         for v in m.values())
+        counted_path(f"{arch} train, {cfg.n_layers} layers", steps,
+                     {k: n * n_steps for k, n in per_step.items()}, paths)
+    if not all(m.get("router_aux", 0.0) > 0
+               and all(v == v and abs(v) != float("inf") for v in m.values())
                for m in metrics):
-        raise AssertionError(f"{MOE_ARCH} train metrics: {metrics}")
+        raise AssertionError(f"{arch} train metrics: {metrics}")
     # every expert that got pairs gets a finite, non-zero gradient
     moe_block = next(p["ffn"] for spec, p in _blocks_of(cfg, params)
                      if spec.ffn == "moe")
@@ -4872,8 +4907,7 @@ def train_moe(dev, paths: dict, tap) -> dict:
     for t in experts:
         t.requires_grad_(True)
     with MoETap() as routing:
-        loss, _ = loss_fn(cfg, params, batch_to(data.batch(MOE_TRAIN_STEPS),
-                                                dev))
+        loss, _ = loss_fn(cfg, params, batch_to(data.batch(n_steps), dev))
         grads = torch.autograd.grad(loss, experts)
     counts = MoETap._counts(routing.layers[0])
     got = counts > 0
@@ -4883,14 +4917,15 @@ def train_moe(dev, paths: dict, tap) -> dict:
     rec = {"metrics": metrics, "experts_with_pairs": int(got.sum()),
            "experts": int(counts.numel()),
            "min_grad_norm_with_pairs": float(norms[:, got].min()),
-           "reduced": {"n_layers": [full.n_layers, cfg.n_layers]}}
-    log(f"[train] {MOE_ARCH} 2 layers, {MOE_TRAIN_STEPS} steps: losses "
+           "reduced": {"n_layers": [get_config(arch).n_layers,
+                                    cfg.n_layers]}}
+    log(f"[train] {arch} {cfg.n_layers} layers, {n_steps} steps: losses "
         f"{[round(m['loss'], 4) for m in metrics]}, router_aux "
         f"{[round(m['router_aux'], 4) for m in metrics]}; "
         f"{rec['experts_with_pairs']} of {rec['experts']} experts got pairs, "
         f"their smallest gradient norm {rec['min_grad_norm_with_pairs']:.3e}")
     if not ok:
-        raise AssertionError(f"{MOE_ARCH}: expert gradients {rec}")
+        raise AssertionError(f"{arch}: expert gradients {rec}")
     del params, opt, plan, grads
     torch.cuda.empty_cache()
     return rec
@@ -4903,28 +4938,331 @@ def _blocks_of(cfg, params):
                 yield spec, period[f"block{i}"]
 
 
-def recurrent_guard(dev) -> dict:
-    """Training rwkv6's and jamba's smoke configs on the card raises: their
-    scan kernels have no backward yet."""
+# -- training the recurrent families: the scans' backward kernels ------------
+
+#: each scan's backward kernel against autograd over its plain forward:
+#: every gradient within this share of its largest |value| (all float32;
+#: the two sum in other orders over up to 64 terms and thousands of steps)
+SCAN_BWD_TOL = 1e-4
+#: float operations per state value and step of each backward, the step
+#: recomputed from the checkpoints included (an exp as one): wkv6_bwd k*v,
+#: P*w, + again, then v*G, do*P, G*P, k*G and their four sums, w*G + r*do;
+#: selective_scan_bwd dt*A, exp, x*B, dt*xB, P*e, + again, then dy*C + G',
+#: G*dt, G*Pe, and the dx, ddt, dA, dB, dC terms with their sums, G*e
+SCAN_BWD_OPS = {"selective_scan_bwd": 24, "wkv6_bwd": 14}
+#: the recurrent configs' whole-model gradient, kernels against the plain
+#: versions, at B 1 x 1,024 (the plain backward over rwkv6-1.6b's 24 layers
+#: takes some 85 s there, and would take minutes at 4,096), with float32
+#: weights: with the configs' bf16 the gradient is chaotic at float32
+#: rounding's scale (tools/scan_grad_control.py: the plain backward times
+#: 1 + 2**-23 noise misses the gate against itself)
+GRAD_CHECK_S = 1024
+#: rwkv6-1.6b trained at train_4k's 4,096, the batch cut from 256 to 4 (its
+#: float32 logits and their gradient are 4.3 GB each), 8 steps
+RWKV_TRAIN_B, RWKV_TRAIN_STEPS = 4, 8
+#: jamba's blocks 3 and 4 (Mamba + MoE, attention + MLP) trained 3 steps
+JAMBA_TRAIN_STEPS = 3
+
+
+def _scan_fns(name: str) -> tuple:
+    """(forward kernel wrapper, backward kernel wrapper, plain backward) of
+    ``wkv6_bwd`` or ``selective_scan_bwd``."""
+    if name == "wkv6_bwd":
+        from repro_torch.kernels.wkv6.ops import (wkv6_bwd_cuda,
+                                                  wkv6_bwd_ref, wkv6_cuda)
+        return wkv6_cuda, wkv6_bwd_cuda, wkv6_bwd_ref
+    from repro_torch.kernels.selective_scan.ops import (
+        selective_scan_bwd_cuda, selective_scan_bwd_ref, selective_scan_cuda)
+    return selective_scan_cuda, selective_scan_bwd_cuda, \
+        selective_scan_bwd_ref
+
+
+def scan_bwd_bound(name: str, args) -> tuple:
+    """Least card time for one scan backward: its operands, the forward's
+    checkpoints and the two gradients it starts from read once, its six
+    gradients written once (float32), against ``SCAN_BWD_OPS`` float
+    operations a state value and step at the float32 rate outside the
+    tensor cores (the bound of ``scan_bound``, extended)."""
+    *ops, ckpt, dout, dstate = args
+    per_step = ops[4].shape[-1]          # N (a [Di, N]) or hd (u [H, hd])
+    n_in = sum(t.numel() for t in (*ops, ckpt, dout, dstate))
+    n_out = sum(t.numel() for t in ops) + dstate.numel()
+    return bound_ms(4 * (n_in + n_out),
+                    SCAN_BWD_OPS[name] * ops[0].numel() * per_step)
+
+
+def check_scan_bwd(name: str, args, label: str, time_it: bool = True,
+                   reps: int = 5) -> dict:
+    """A scan's backward kernel on these operands (r, k, v, w, u, or xi,
+    dt, bm, cm, a; the forward's checkpoints; the gradients of the output
+    and of the final state) against autograd over its plain forward from
+    the first checkpoint: each of the six gradients within
+    ``SCAN_BWD_TOL`` of its largest |value|; two launches bit-equal; the
+    forward kernel from the same state with its checkpoints on and off
+    giving the same output and final state, and the same checkpoints.
+    With ``time_it``, the kernel's CUDA-event time (median of ``reps``),
+    the plain backward's (one run, whose output is the one compared:
+    autograd over a Python loop, some 9-11 s at 4,096 steps) and the
+    bound."""
     import torch
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.models import init_params, loss_fn
+    fwd, bwd, plain = _scan_fns(name)
+    *ops, ckpt, _, _ = args
+    got = bwd(*args)
+    again = bwd(*args)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    want = plain(*args)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+    err = _bwd_rel_err(got, want)
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    del got, again, want
+    s_on, s_off = ckpt[:, :, 0].clone(), ckpt[:, :, 0].clone()
+    out_on, _, ck_on = fwd(*ops, s_on, checkpoints=True)
+    out_off, _ = fwd(*ops, s_off)
+    torch.cuda.synchronize()
+    forward_same = bool(torch.equal(out_on, out_off)
+                        and torch.equal(s_on, s_off)
+                        and torch.equal(ck_on, ckpt))
+    del out_on, out_off, ck_on, s_on, s_off
+    shape = " ".join(f"{list(t.shape)}" for t in args[:5])
+    if not all(t.data_ptr() % 16 == 0 for t in ops):
+        shape += " (unaligned)"
+    rec = {"label": label, "shape": shape, "rel_err": err,
+           "max_abs_err": max(err), "tolerance": SCAN_BWD_TOL,
+           "deterministic": deterministic, "forward_bits_kept": forward_same}
+    log(f"[train] {name} {label}: {shape}: gradients' max |err| / max "
+        f"|value| {', '.join(f'{e:.2e}' for e in err)} (allowed "
+        f"{SCAN_BWD_TOL:.0e}); two launches bit-equal {deterministic}; "
+        f"forward bits with checkpoints on = off {forward_same}")
+    if not (finite and max(err) <= SCAN_BWD_TOL and deterministic
+            and forward_same):
+        raise AssertionError(f"{name} {label}: {rec}")
+    if time_it:
+        rec["ms"] = cuda_time_ms(lambda: bwd(*args), reps=reps)
+        rec["plain_ms"] = plain_ms
+        rec["bound_ms"], rec["bound_by"] = scan_bwd_bound(name, args)
+        rec["library_ms"] = None   # no PyTorch call computes the recurrence
+        log(f"[train] {name} {label}: kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.1f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), {rec['ms'] / rec['bound_ms']:.1f}x")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _unaligned(t):
+    """``t`` copied to a contiguous view 4 bytes past a 16-byte boundary,
+    where the scan kernels stage with 4-byte copies."""
+    import torch
+    buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+#: the small shapes each backward kernel is checked at: S not a multiple
+#: of 16 (and one that is), hd 16 and heads split over blocks, N 4, 8, 16,
+#: channels past a block's 16, the last of each unaligned
+SCAN_BWD_SMALL = {"wkv6_bwd": ((2, 37, 3, 16), (2, 32, 2, 16),
+                               (1, 70, 2, 64), (3, 21, 5, 64)),
+                  "selective_scan_bwd": ((2, 37, 200, 4), (1, 45, 130, 8),
+                                         (2, 32, 64, 16), (3, 19, 200, 16))}
+
+
+def scan_bwd_small(dev) -> dict:
+    """Each backward kernel at ``SCAN_BWD_SMALL``'s shapes on operands from
+    a seed: the forward kernel's own checkpoints, random gradients of the
+    output and of the final state."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rand = lambda *sh: torch.randn(*sh, device=dev, generator=gen)
     out = {}
-    for arch in (RWKV_ARCH, JAMBA_ARCH):
-        cfg = get_smoke_config(arch)
-        params = init_params(cfg, 0, device=dev)
-        for _, t in _leaves(params):
-            t.requires_grad_(True)
-        toks = torch.randint(0, cfg.vocab_size, (1, 16), device=dev)
-        try:
-            loss_fn(cfg, params, {"tokens": toks,
-                                  "labels": toks.roll(-1, 1)})[0].backward()
-        except NotImplementedError as e:
-            out[arch] = str(e)[:120]
-        else:
-            raise AssertionError(f"{arch}: training on the card did not "
-                                 f"raise")
-    log(f"[train] recurrent guard: {out}")
+    for name, shapes in SCAN_BWD_SMALL.items():
+        fwd, _, _ = _scan_fns(name)
+        for i, shape in enumerate(shapes):
+            if name == "wkv6_bwd":
+                b, s, h, hd = shape
+                ops = [rand(b, s, h, hd) * 0.5 for _ in range(3)] + [
+                    torch.exp(-torch.exp(rand(b, s, h, hd) - 2)),
+                    rand(h, hd) * 0.1]
+                state, dout = rand(b, h, hd, hd), rand(b, s, h, hd)
+            else:
+                b, s, di, n = shape
+                ops = [rand(b, s, di),
+                       torch.nn.functional.softplus(rand(b, s, di) - 2),
+                       rand(b, s, n), rand(b, s, n),
+                       -torch.arange(1, n + 1, device=dev,
+                                     dtype=torch.float32).repeat(di, 1)]
+                state, dout = rand(b, di, n), rand(b, s, di)
+            if i == len(shapes) - 1:
+                ops = [_unaligned(t) for t in ops]
+                dout = _unaligned(dout)
+            _, _, ckpt = fwd(*ops, state.clone(), checkpoints=True)
+            args = (*ops, ckpt, dout, torch.randn_like(state))
+            out[f"{name} {shape}"] = check_scan_bwd(
+                name, args, f"{shape}", time_it=False)
+    return out
+
+
+def train_rwkv(dev, paths: dict) -> dict:
+    """rwkv6-1.6b at full width and depth: 8 steps of 4 x 4,096 through
+    ``train`` (every step 48 ``wkv6`` and 24 ``wkv6_bwd`` launches: remat
+    runs each layer's forward twice), the loss falling; step 0's gradients
+    taken twice, bit-equal; two more steps under the profiler."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import batch_to, plan_cell
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    cfg = get_config(RWKV_ARCH)
+    per_step = {"wkv6": 2 * cfg.n_layers, "wkv6_bwd": cfg.n_layers,
+                "selective_scan": 0, "selective_scan_bwd": 0,
+                "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    torch.cuda.reset_peak_memory_stats()
+    run, wall, _ = counted_path(
+        f"{RWKV_ARCH} train", lambda: train(
+            RWKV_ARCH, smoke=False, steps=RWKV_TRAIN_STEPS,
+            global_batch=RWKV_TRAIN_B, seq_len=TRAIN_S, peak_lr=TRAIN_LR,
+            log_every=1, device=dev),
+        {k: v * RWKV_TRAIN_STEPS for k, v in per_step.items()}, paths)
+    rec = {"batch": RWKV_TRAIN_B, "seq": TRAIN_S, "steps": RWKV_TRAIN_STEPS,
+           "losses": run["losses"], "wall_s": wall,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_step": per_step,
+           "reduced": {"global_batch": [256, RWKV_TRAIN_B]}}
+    losses = [l for _, l in run["losses"]]
+    if not all(l == l and abs(l) != float("inf") for l in losses):
+        raise AssertionError(f"{RWKV_ARCH}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{RWKV_ARCH}: the loss did not fall {losses}")
+    rec["step_s_median"] = statistics.median(
+        t for s, t in run["step_s"] if s > 0)
+    rec["tokens_per_s"] = RWKV_TRAIN_B * TRAIN_S / rec["step_s_median"]
+    torch.cuda.empty_cache()
+    # step 0's gradients, twice, from the weights train() starts from
+    params = init_params(cfg, 0, device=dev)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                                  global_batch=RWKV_TRAIN_B))
+    batch = batch_to(data.batch(0), dev)
+    first = model_grads(cfg, params, batch, None)
+    second = model_grads(cfg, params, batch, None)
+    rec["step0_loss"] = first[0]
+    rec["step0_grads_bit_equal"] = first[0] == second[0] and all(
+        torch.equal(first[1][n], second[1][n]) for n in first[1])
+    del first, second
+    if not rec["step0_grads_bit_equal"]:
+        raise AssertionError(f"{RWKV_ARCH}: step 0's gradients differ")
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    rec["n_params"] = n_params
+    rec["model_flops_per_step"] = train_flops(cfg, n_params, RWKV_TRAIN_B,
+                                              TRAIN_S)
+    rec["mfu"] = rec["model_flops_per_step"] / rec["step_s_median"] \
+        / PEAK_BF16_S
+    log(f"[train] {RWKV_ARCH} B={RWKV_TRAIN_B} S={TRAIN_S}: losses "
+        f"{[round(l, 4) for l in losses]}; step {rec['step_s_median']:.4f} "
+        f"s (median, first excluded), {rec['tokens_per_s']:.1f} tokens/s, "
+        f"mfu {rec['mfu']:.4f} ({rec['model_flops_per_step']:.4e} flops a "
+        f"step), peak {rec['peak_memory_gb']:.2f} GB; step 0's gradients "
+        f"taken twice bit-equal: {rec['step0_grads_bit_equal']}")
+    opt_cfg = AdamWConfig(peak_lr=TRAIN_LR, total_steps=RWKV_TRAIN_STEPS,
+                          warmup_steps=1)
+    plan = plan_cell(cfg, ShapeSpec("train", TRAIN_S, RWKV_TRAIN_B, "train"),
+                     opt_cfg=opt_cfg, device=dev)
+    opt = init_opt_state(params, opt_cfg)
+
+    def two_steps():
+        for s in (0, 1):
+            plan.step(params, opt, data.batch(s))
+    rec["profile"] = device_busy(
+        two_steps, f"{RWKV_ARCH} 2 train steps",
+        groups={"wkv6_bwd": ("wkv6_bwd_",), "wkv6": ("wkv6_kernel",)})
+    del params, opt, plan, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_recurrent(dev, paths: dict) -> dict:
+    """The recurrent families' training on the card: (a) each scan's
+    backward kernel on the operands its op was given while a whole-model
+    gradient ran (an rwkv6-1.6b layer, B 1, S 4,096; a jamba Mamba layer
+    from (d)'s steps), and at small ragged and unaligned shapes; (b) the
+    whole-model gradient at B 1 x 1,024 with float32 weights
+    (``GRAD_CHECK_S``), kernels against ``backend="ref"``, of rwkv6-1.6b
+    at full width and depth and of jamba at full width cut to its blocks 2
+    and 4 (Mamba + MLP, attention + MLP; no MoE block, whose routing flips
+    between kernel and plain version); (c) rwkv6-1.6b trained
+    (``train_rwkv``); (d) jamba at full width cut to its blocks 3 and 4
+    (Mamba + MoE, attention + MLP) trained 3 steps of 1 x 4,096."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Stage, init_params
+    out: dict = {"kernel": {}}
+    t0 = time.monotonic()
+    # (a) and (b), rwkv6-1.6b
+    cfg = get_config(RWKV_ARCH)
+    params = init_params(cfg, 0, device=dev)
+    toks = family_inputs(cfg, TRAIN_S + 1, dev, seed=4)
+    with OperandTap("wkv6_bwd", k=1) as tap:
+        model_grads(cfg, params, {"tokens": toks[:, :-1],
+                                  "labels": toks[:, 1:]}, None)
+    (args, _), = (x for v in tap.samples.values() for x in v)
+    del tap, params
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(cfg, 0, device=dev)
+    out[RWKV_ARCH] = {"grad": compare_grads(
+        cfg, params, {"tokens": toks[:, :GRAD_CHECK_S],
+                      "labels": toks[:, 1:GRAD_CHECK_S + 1]},
+        f"{RWKV_ARCH} float32")}
+    del params
+    torch.cuda.empty_cache()
+    out["kernel"]["wkv6_bwd"] = check_scan_bwd(
+        "wkv6_bwd", args, f"{RWKV_ARCH} layer (B 1, S {TRAIN_S})")
+    del args
+    out["small"] = scan_bwd_small(dev)
+    # (b), jamba's blocks 2 and 4
+    full = get_config(JAMBA_ARCH)
+    pattern = full.stages[0].pattern
+    cfg = dataclasses.replace(full, dtype="float32", stages=(
+        Stage(1, (pattern[2], pattern[4])),))
+    params = init_params(cfg, 0, device=dev)
+    toks = family_inputs(cfg, GRAD_CHECK_S + 1, dev, seed=5)
+    out[JAMBA_ARCH] = {"grad": compare_grads(
+        cfg, params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]},
+        f"{JAMBA_ARCH} blocks 2, 4, float32"),
+        "grad_reduced": {"stages": "blocks 2 and 4 of the 8-layer period: "
+                                   "Mamba + MLP, attention + MLP"}}
+    del params
+    torch.cuda.empty_cache()
+    # (c)
+    out[RWKV_ARCH]["train"] = train_rwkv(dev, paths)
+    # (d), jamba's blocks 3 and 4, its Mamba layer's backward tapped
+    cfg = dataclasses.replace(full, stages=(Stage(1, pattern[3:5]),))
+    tap = OperandTap("selective_scan_bwd", k=1)
+    out[JAMBA_ARCH]["train"] = train_moe(
+        dev, paths, tap, JAMBA_ARCH, cfg, JAMBA_TRAIN_STEPS,
+        {"selective_scan": 2, "selective_scan_bwd": 1,
+         "flash_attention_fwd": 2, "flash_attention_bwd": 1, "wkv6": 0,
+         "wkv6_bwd": 0})
+    out[JAMBA_ARCH]["train"]["reduced"] = {
+        "stages": "blocks 3 and 4 of the 8-layer period: Mamba + MoE, "
+                  "attention + MLP", "global_batch": [256, 1]}
+    (args, _), = (x for v in tap.samples.values() for x in v)
+    del tap
+    out["kernel"]["selective_scan_bwd"] = check_scan_bwd(
+        "selective_scan_bwd", args,
+        f"{JAMBA_ARCH} Mamba layer (B 1, S {TRAIN_S})")
+    del args
+    torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t0
+    log(f"[train] recurrent families: {out['seconds']:.1f} s")
     return out
 
 
@@ -4932,11 +5270,14 @@ def phase_training(dev) -> dict:
     """Phase 13: the flash backward kernel on a training layer's own
     operands, the whole model's gradient against the plain versions,
     gemma3-1b trained with a kill and a resume, deepseek-moe-16b's MoE
-    trained, the ``train_lm`` twin, and the recurrent guard."""
+    trained, the ``train_lm`` twin, and the recurrent families' training
+    through the scans' backward kernels (``train_recurrent``)."""
+    import dataclasses
+
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import init_params
+    from repro_torch.models import Stage, init_params
     t_phase = time.monotonic()
     paths: dict = {}
     out: dict = {"launches": paths}
@@ -4978,7 +5319,13 @@ def phase_training(dev) -> dict:
     # -- training -----------------------------------------------------------
     out["train"] = train_kill_resume(dev, paths)
     moe_tap = OperandTap("flash_attention_bwd", k=1)
-    out["moe"] = train_moe(dev, paths, moe_tap)
+    full = get_config(MOE_ARCH)
+    moe_cfg = dataclasses.replace(full, stages=tuple(
+        Stage(1, st.pattern) for st in full.stages))
+    out["moe"] = train_moe(dev, paths, moe_tap, MOE_ARCH, moe_cfg,
+                           MOE_TRAIN_STEPS, {
+                               "flash_attention_fwd": 2 * moe_cfg.n_layers,
+                               "flash_attention_bwd": moe_cfg.n_layers})
     args, static = next(s for v in moe_tap.samples.values() for s in v)
     kernel["moe"] = check_flash_bwd(args, static,
                                     f"{MOE_ARCH} layer (B 1, S {TRAIN_S})")
@@ -4992,7 +5339,8 @@ def phase_training(dev) -> dict:
     out["train_lm"] = {k: lm_out[k] for k in ("first_loss", "final_loss",
                                                "tok_per_s", "steps")}
     out["train_lm"]["wall_s"] = lm_wall
-    out["recurrent_guard"] = recurrent_guard(dev)
+    torch.cuda.empty_cache()
+    out["recurrent"] = train_recurrent(dev, paths)
     out["kernel"] = kernel
     out["seconds"] = time.monotonic() - t_phase
     log(f"[train] phase: {out['seconds']:.1f} s")
@@ -5324,7 +5672,8 @@ def main() -> int:
         k = recurrent[arch][key]
         kernels[name] = {
             "matched": True, "launches_by_path": {
-                **families["launches"][name], **recurrent["launches"][name]},
+                **families["launches"][name], **recurrent["launches"][name],
+                **training["launches"][name]},
             **{x: k[x] for x in ("max_abs_err", "bit_equal", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "shape")}}
@@ -5355,6 +5704,26 @@ def main() -> int:
         "max_abs_err_is": "max |err| / max |value| of each of dQ, dK, dV"}
     flash["launches_by_path"].update(
         training["launches"]["flash_attention_fwd"])
+    # the scans' backward kernels, measured on a training layer's own
+    # operands (an rwkv6-1.6b layer and a jamba Mamba layer, B 1, S 4,096),
+    # the small ragged and unaligned shapes' errors beside them; launches on
+    # every training path (and 0 on the inference paths)
+    scans = training["recurrent"]
+    for name in ("wkv6_bwd", "selective_scan_bwd"):
+        k = scans["kernel"][name]
+        small = {key: r["max_abs_err"] for key, r in scans["small"].items()
+                 if key.startswith(name)}
+        kernels[name] = {
+            "matched": True,
+            "launches_by_path": {
+                p: n for ph in (model, families, recurrent, training)
+                for p, n in ph["launches"].get(name, {}).items()},
+            "max_abs_err": max([k["max_abs_err"], *small.values()]),
+            "max_abs_err_is": "max |err| / max |value| of each gradient",
+            "small_shapes": small,
+            **{x: k[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "shape", "deterministic",
+                                 "forward_bits_kept")}}
     # the chaos and harness phases' paths, each with the launches of the
     # kernels it runs (a harness path that runs no kernel records none)
     for phase in (chaos, harness):
@@ -5374,7 +5743,8 @@ def main() -> int:
                | {x: k[x] for x in ("local_layer", "moe_layer", "mla_layer",
                                     "jamba_layer", "float32_case",
                                     "deterministic", "lse_leaves_o",
-                                    "max_abs_err_is",
+                                    "max_abs_err_is", "forward_bits_kept",
+                                    "small_shapes",
                                     "bit_equal",
                                     "full_iteration_ms",
                                     "bound_dwell_sum_ms", "in_set_main_path",

@@ -32,7 +32,8 @@ __all__ = ["KERNELS", "build", "load", "compiler_report"]
 
 #: every CUDA source of the port, by kernel name
 KERNELS = ("uts_hash", "mandelbrot", "flash_attention",
-           "flash_attention_bwd", "bc_level", "selective_scan", "wkv6")
+           "flash_attention_bwd", "bc_level", "selective_scan",
+           "selective_scan_bwd", "wkv6", "wkv6_bwd")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

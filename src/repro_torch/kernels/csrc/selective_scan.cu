@@ -16,6 +16,14 @@
 //   a  [Di, N]                     read
 //   state [B, Di, N]               read, then written with the last state
 //   y  [B, S, Di]                  written
+//   ckpt [B, Di, S / 16 + 1, N]    optional (null: not written): the state
+//                                  before steps 0, 16, 32, ... (and after
+//                                  the last step when 16 divides S), for
+//                                  the backward kernel
+//                                  (selective_scan_bwd.cu), which
+//                                  recomputes the states between two of
+//                                  them; y and the state keep their bits
+//                                  either way
 // x * B is formed here, one step at a time: the reference materialises it
 // for all steps at once (17 GB a layer at jamba's 32k prefill).
 //
@@ -224,7 +232,7 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ cm,
                           const float* __restrict__ a,
                           float* __restrict__ state, float* __restrict__ y,
-                          int s, int di) {
+                          float* __restrict__ ckpt, int s, int di) {
   constexpr int V = N / kLanes;  // state values a lane
   static_assert(V * kLanes == N, "N is 4, 8 or 16");
   __shared__ Stage<N> stage[2];
@@ -244,11 +252,20 @@ __global__ void __launch_bounds__(kThreads)
   }
   const size_t row0 = static_cast<size_t>(b) * s;  // first step of row b
   const bool store = on && sub == 0;
+  // checkpoint n of this lane's values: the state before step 16 n
+  float* ck_row = nullptr;
+  if (ckpt != nullptr && on)
+    ck_row = ckpt + (static_cast<size_t>(b) * di + d) * (s / kChunk + 1) * N +
+             n0;
 
   stage_chunk<N, W>(stage[0], xi, dt, bm, cm, row0, 0, min(kChunk, s), d0,
                     di);
   for (int t0 = 0, buf = 0; t0 < s; t0 += kChunk, buf ^= 1) {
     const int len = min(kChunk, s - t0);
+    if (ck_row != nullptr) {
+#pragma unroll
+      for (int q = 0; q < V; ++q) ck_row[t0 / kChunk * N + q] = st[q];
+    }
     if (t0 + kChunk < s) {
       // the next chunk's copies run while this one is computed
       stage_chunk<N, W>(stage[buf ^ 1], xi, dt, bm, cm, row0, t0 + kChunk,
@@ -274,12 +291,16 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int q = 0; q < V; ++q) st_row[q] = st[q];
   }
+  if (ck_row != nullptr && s % kChunk == 0) {
+#pragma unroll
+    for (int q = 0; q < V; ++q) ck_row[s / kChunk * N + q] = st[q];
+  }
 }
 
 template <int N>
 int launch(const float* xi, const float* dt, const float* bm, const float* cm,
-           const float* a, float* state, float* y, int batch, int s, int di,
-           cudaStream_t stream) {
+           const float* a, float* state, float* y, float* ckpt, int batch,
+           int s, int di, cudaStream_t stream) {
   const dim3 grid((di + kChannels - 1) / kChannels, batch);
   const bool aligned = di % 4 == 0 &&
                        ((reinterpret_cast<uintptr_t>(xi) |
@@ -288,23 +309,24 @@ int launch(const float* xi, const float* dt, const float* bm, const float* cm,
                          reinterpret_cast<uintptr_t>(cm)) & 15) == 0;
   if (aligned)
     selective_scan_kernel<N, 4><<<grid, kThreads, 0, stream>>>(
-        xi, dt, bm, cm, a, state, y, s, di);
+        xi, dt, bm, cm, a, state, y, ckpt, s, di);
   else
     selective_scan_kernel<N, 1><<<grid, kThreads, 0, stream>>>(
-        xi, dt, bm, cm, a, state, y, s, di);
+        xi, dt, bm, cm, a, state, y, ckpt, s, di);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // xi, dt, y [batch, s, di]; bm, cm [batch, s, n]; a [di, n]; state [batch,
-// di, n]; all float32, contiguous, on the device of `stream`.  n is 4, 8 or
-// 16.  Returns the cudaError_t of the launch (0: launched).
+// di, n]; ckpt [batch, di, s / 16 + 1, n] or null; all float32, contiguous,
+// on the device of `stream`.  n is 4, 8 or 16.  Returns the cudaError_t of
+// the launch (0: launched).
 extern "C" int selective_scan_launch(const void* xi, const void* dt,
                                      const void* bm, const void* cm,
                                      const void* a, void* state, void* y,
-                                     int batch, int s, int di, int n,
-                                     void* stream) {
+                                     void* ckpt, int batch, int s, int di,
+                                     int n, void* stream) {
   if (batch <= 0 || s <= 0 || di <= 0 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* x = static_cast<const float*>(xi);
@@ -314,14 +336,18 @@ extern "C" int selective_scan_launch(const void* xi, const void* dt,
   const auto* ap = static_cast<const float*>(a);
   auto* sp = static_cast<float*>(state);
   auto* yp = static_cast<float*>(y);
+  auto* ck = static_cast<float*>(ckpt);
   auto st = static_cast<cudaStream_t>(stream);
   switch (n) {
     case 4:
-      return launch<4>(x, h, bp, cp, ap, sp, yp, batch, s, di, st);
+      return launch<4>(x, h, bp, cp, ap, sp, yp, ck, batch, s, di,
+                          st);
     case 8:
-      return launch<8>(x, h, bp, cp, ap, sp, yp, batch, s, di, st);
+      return launch<8>(x, h, bp, cp, ap, sp, yp, ck, batch, s, di,
+                          st);
     case 16:
-      return launch<16>(x, h, bp, cp, ap, sp, yp, batch, s, di, st);
+      return launch<16>(x, h, bp, cp, ap, sp, yp, ck, batch, s, di,
+                          st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -16,6 +16,12 @@
 //   u [H, hd]                  read
 //   state [B, H, hd, hd]       read, then written with the last state
 //   o [B, S, H, hd]            written
+//   ckpt [B, H, S / 16 + 1, hd, hd], optional (null: not written): the
+//                              state before steps 0, 16, 32, ... (and after
+//                              the last step when 16 divides S), for the
+//                              backward kernel (wkv6_bwd.cu), which
+//                              recomputes the states between two of them;
+//                              o and the state keep their bits either way
 //
 // What bounds it: on paper, the float operations (7 a state value and step,
 // 0.45 ms at rwkv6-1.6b's 32k layer) and the bytes (20 a head channel and
@@ -215,7 +221,8 @@ __global__ void __launch_bounds__(Shape<HD>::kThreads)
     wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ w,
                 const float* __restrict__ u, float* __restrict__ state,
-                float* __restrict__ o, int s, int h) {
+                float* __restrict__ o, float* __restrict__ ckpt, int s,
+                int h) {
   using Sh = Shape<HD>;
   __shared__ Stage<HD> stage[2];
   const int bh = blockIdx.x / Sh::kSplit;  // b * h + head
@@ -239,9 +246,20 @@ __global__ void __launch_bounds__(Shape<HD>::kThreads)
   const size_t base = static_cast<size_t>(b) * s * step +
                       static_cast<size_t>(head) * HD;
 
+  // checkpoint n of this block's columns: the state before step 16 n
+  float* ck_col = nullptr;
+  if (ckpt != nullptr)
+    ck_col = ckpt + static_cast<size_t>(bh) * (s / kChunk + 1) * HD * HD +
+             static_cast<size_t>(i0) * HD + j;
+
   stage_chunk<HD, W>(stage[0], r, k, w, v, base, step, min(kChunk, s), col0);
   for (int t0 = 0, buf = 0; t0 < s; t0 += kChunk, buf ^= 1) {
     const int len = min(kChunk, s - t0);
+    if (ck_col != nullptr) {
+      float* dst = ck_col + static_cast<size_t>(t0 / kChunk) * HD * HD;
+#pragma unroll
+      for (int q = 0; q < kVals; ++q) dst[q * HD] = col[q];
+    }
     if (t0 + kChunk < s) {
       // the next chunk's copies run while this one is computed
       stage_chunk<HD, W>(stage[buf ^ 1], r, k, w, v,
@@ -266,12 +284,17 @@ __global__ void __launch_bounds__(Shape<HD>::kThreads)
   }
 #pragma unroll
   for (int q = 0; q < kVals; ++q) s_blk[(i0 + q) * HD + j] = col[q];
+  if (ck_col != nullptr && s % kChunk == 0) {
+    float* dst = ck_col + static_cast<size_t>(s / kChunk) * HD * HD;
+#pragma unroll
+    for (int q = 0; q < kVals; ++q) dst[q * HD] = col[q];
+  }
 }
 
 template <int HD>
 int launch(const float* r, const float* k, const float* v, const float* w,
-           const float* u, float* state, float* o, int batch, int s, int h,
-           cudaStream_t stream) {
+           const float* u, float* state, float* o, float* ckpt, int batch,
+           int s, int h, cudaStream_t stream) {
   using Sh = Shape<HD>;
   const int blocks = batch * h * Sh::kSplit;
   const bool aligned = ((reinterpret_cast<uintptr_t>(r) |
@@ -279,22 +302,24 @@ int launch(const float* r, const float* k, const float* v, const float* w,
                          reinterpret_cast<uintptr_t>(v) |
                          reinterpret_cast<uintptr_t>(w)) & 15) == 0;
   if (aligned)
-    wkv6_kernel<HD, 4><<<blocks, Sh::kThreads, 0, stream>>>(r, k, v, w, u,
-                                                             state, o, s, h);
+    wkv6_kernel<HD, 4><<<blocks, Sh::kThreads, 0, stream>>>(
+        r, k, v, w, u, state, o, ckpt, s, h);
   else
-    wkv6_kernel<HD, 1><<<blocks, Sh::kThreads, 0, stream>>>(r, k, v, w, u,
-                                                             state, o, s, h);
+    wkv6_kernel<HD, 1><<<blocks, Sh::kThreads, 0, stream>>>(
+        r, k, v, w, u, state, o, ckpt, s, h);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // r, k, v, w, o [batch, s, h, hd]; u [h, hd]; state [batch, h, hd, hd];
-// all float32, contiguous, on the device of `stream`.  hd is 16 or 64.
-// Returns the cudaError_t of the launch (0: launched).
+// ckpt [batch, h, s / 16 + 1, hd, hd] or null; all float32, contiguous, on
+// the device of `stream`.  hd is 16 or 64.  Returns the cudaError_t of the
+// launch (0: launched).
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
                            const void* w, const void* u, void* state, void* o,
-                           int batch, int s, int h, int hd, void* stream) {
+                           void* ckpt, int batch, int s, int h, int hd,
+                           void* stream) {
   if (batch <= 0 || s <= 0 || h <= 0 ||
       static_cast<long long>(batch) * h * (hd / kCols) > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -305,12 +330,13 @@ extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
   const auto* up = static_cast<const float*>(u);
   auto* sp = static_cast<float*>(state);
   auto* op = static_cast<float*>(o);
+  auto* cp = static_cast<float*>(ckpt);
   auto st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16:
-      return launch<16>(rp, kp, vp, wp, up, sp, op, batch, s, h, st);
+      return launch<16>(rp, kp, vp, wp, up, sp, op, cp, batch, s, h, st);
     case 64:
-      return launch<64>(rp, kp, vp, wp, up, sp, op, batch, s, h, st);
+      return launch<64>(rp, kp, vp, wp, up, sp, op, cp, batch, s, h, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

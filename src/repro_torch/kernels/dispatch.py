@@ -40,7 +40,7 @@ __all__ = [
     "KernelOp", "register_kernel", "get_kernel", "registered_kernels",
     "dispatch", "bucket", "resolve_backend",
     "compile_log", "reset_compile_log", "estimate_cost",
-    "launches", "record_launch", "reset_launches", "refuse_grad",
+    "launches", "record_launch", "reset_launches",
 ]
 
 BACKENDS = ("cuda", "ref")
@@ -130,7 +130,8 @@ def _ensure_registered() -> None:
     # Kernel packages self-register at import; pull the shipped ops in
     # for callers that touch the registry before importing either.
     if {"uts_hash", "mandelbrot", "flash_attention_fwd", "bc_forward_level",
-            "bc_backward_level", "selective_scan", "wkv6"} <= _REGISTRY.keys():
+            "bc_backward_level", "selective_scan", "selective_scan_bwd",
+            "wkv6", "wkv6_bwd"} <= _REGISTRY.keys():
         return
     from .uts_hash import ops as _u      # noqa: F401
     from .mandelbrot import ops as _m    # noqa: F401
@@ -181,18 +182,6 @@ def record_launch(name: str) -> None:
     """Count one kernel launch of ``name`` (called by its CUDA body)."""
     with _LAUNCHES_LOCK:
         _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
-
-
-def refuse_grad(name: str, *operands: torch.Tensor) -> None:
-    """Raise if autograd would need a gradient through kernel ``name``,
-    which has no backward kernel: its output would carry none, and the
-    gradients upstream of it would be silently wrong."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward yet, and an operand "
-            f"requires grad (ROADMAP.md, queue 1: the scans' backward "
-            f"kernels); train these layers on the CPU, where the plain "
-            f"version is differentiable")
 
 
 def reset_launches(name: Optional[str] = None) -> None:

@@ -1,4 +1,4 @@
-"""Public wrapper for Mamba's selective scan.
+"""Public wrapper for Mamba's selective scan, forward and backward.
 
 Registers op ``selective_scan`` with the port's dispatch registry.  Its
 CUDA body launches the hand-written kernel of ``csrc/selective_scan.cu``
@@ -6,6 +6,18 @@ CUDA body launches the hand-written kernel of ``csrc/selective_scan.cu``
 version of ``ref.py``, which describes the operands.  The state is
 updated in place, so dispatch must hand the bodies the caller's own
 tensors: the op declares no elastic axis, and dispatch pads nothing.
+
+Training: when an operand requires grad, :func:`selective_scan` goes
+through :class:`SelectiveScan`, an autograd function whose forward runs op
+``selective_scan`` with the kernel's state checkpoints on (every 16 steps;
+``y`` and the state keep their bits) and whose backward runs op
+``selective_scan_bwd``: on CUDA tensors the hand-written backward kernel
+``csrc/selective_scan_bwd.cu`` (it recomputes the states between
+checkpoints; deterministic; its two launches counted as one), on the CPU
+autograd over the unchanged plain forward (``selective_scan_bwd_ref``),
+which keeps only the initial state.  The JAX package trains through XLA's
+autodiff of its ``lax.scan``.  Under ``torch.utils.checkpoint`` the
+forward runs twice and the backward once a layer.
 """
 from __future__ import annotations
 
@@ -15,15 +27,18 @@ import functools
 import torch
 
 from .. import _build
-from ..dispatch import (KernelOp, dispatch, record_launch, refuse_grad,
-                        register_kernel)
-from .ref import selective_scan_ref
+from ..dispatch import (KernelOp, dispatch, record_launch, register_kernel,
+                        resolve_backend)
+from .ref import selective_scan_bwd_ref, selective_scan_ref
 
 __all__ = ["selective_scan", "selective_scan_cuda", "selective_scan_ref",
-           "STATE_SIZES"]
+           "selective_scan_bwd_cuda", "selective_scan_bwd_ref",
+           "SelectiveScan", "STATE_SIZES", "CKPT_EVERY"]
 
 #: state sizes N the kernel is built for
 STATE_SIZES = (4, 8, 16)
+#: steps between two of the forward kernel's state checkpoints
+CKPT_EVERY = 16
 #: the kernel's grid puts the batch on blockIdx.y
 _MAX_BATCH = 65535
 
@@ -32,12 +47,32 @@ _MAX_BATCH = 65535
 def _lib() -> ctypes.CDLL:
     """The kernel's library, built and loaded on first use."""
     lib = _build.load("selective_scan")
-    lib.selective_scan_launch.argtypes = [ctypes.c_void_p] * 7 + [
+    lib.selective_scan_launch.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.selective_scan_launch.restype = ctypes.c_int
     lib.selective_scan_error_string.argtypes = [ctypes.c_int]
     lib.selective_scan_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    """The backward kernel's library, built and loaded on first use."""
+    lib = _build.load("selective_scan_bwd")
+    lib.selective_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 15 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.selective_scan_bwd_launch.restype = ctypes.c_int
+    lib.selective_scan_bwd_workspace.argtypes = [ctypes.c_int] * 4
+    lib.selective_scan_bwd_workspace.restype = ctypes.c_longlong
+    lib.selective_scan_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.selective_scan_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def checkpoint_count(s: int) -> int:
+    """Checkpoints the forward kernel keeps of an S-step scan: the state
+    before steps 0, 16, 32, ... and, when 16 divides S, after the last."""
+    return s // CKPT_EVERY + 1
 
 
 def _check(xi, dt, bm, cm, a, state) -> tuple:
@@ -81,30 +116,72 @@ def _check(xi, dt, bm, cm, a, state) -> tuple:
 
 def selective_scan_cuda(xi: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
                         cm: torch.Tensor, a: torch.Tensor,
-                        state: torch.Tensor) -> tuple:
-    """Launch the kernel: ``(y, state)``, ``state`` updated in place.
-    Raises ``NotImplementedError`` when an operand requires grad: the
-    kernel has no backward yet."""
+                        state: torch.Tensor, *,
+                        checkpoints: bool = False) -> tuple:
+    """Launch the kernel: ``(y, state)``, ``state`` updated in place; with
+    ``checkpoints`` also the states the backward kernel starts from,
+    ``[B, Di, checkpoint_count(S), N]`` float32."""
     b, s, di, n = _check(xi, dt, bm, cm, a, state)
-    refuse_grad("selective_scan", xi, dt, bm, cm, a, state)
     y = torch.empty((b, s, di), dtype=torch.float32, device=xi.device)
+    ckpt = torch.empty((b, di, checkpoint_count(s), n), dtype=torch.float32,
+                       device=xi.device) if checkpoints else None
     lib = _lib()
     with torch.cuda.device(xi.device):
         stream = torch.cuda.current_stream(xi.device).cuda_stream
         err = lib.selective_scan_launch(
             xi.data_ptr(), dt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-            a.data_ptr(), state.data_ptr(), y.data_ptr(), b, s, di, n,
-            stream)
+            a.data_ptr(), state.data_ptr(), y.data_ptr(),
+            None if ckpt is None else ckpt.data_ptr(), b, s, di, n, stream)
     if err != 0:
         raise RuntimeError(
             f"selective_scan kernel launch failed: "
             f"{lib.selective_scan_error_string(err).decode()} "
             f"(cudaError {err})")
     record_launch("selective_scan")
-    return y, state
+    return (y, state, ckpt) if checkpoints else (y, state)
 
 
-def _cost(xi, dt, bm, cm, a, state) -> float:
+def selective_scan_bwd_cuda(xi: torch.Tensor, dt: torch.Tensor,
+                            bm: torch.Tensor, cm: torch.Tensor,
+                            a: torch.Tensor, ckpt: torch.Tensor,
+                            dy: torch.Tensor, dstate: torch.Tensor) -> tuple:
+    """Launch the backward kernel: the operands as
+    :func:`selective_scan_cuda` took them, ``ckpt`` its checkpoints, ``dy``
+    the gradient of ``y`` and ``dstate`` that of the final state.  Returns
+    ``(dxi, ddt, dbm, dcm, da, dstate0)``, dstate0 the initial state's
+    gradient."""
+    b, s, di, n = _check(xi, dt, bm, cm, a, dstate)
+    for what, t, shape in (("ckpt", ckpt, (b, di, checkpoint_count(s), n)),
+                           ("dy", dy, (b, s, di))):
+        if t.dtype != torch.float32 or t.device != xi.device or \
+                tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"selective_scan_bwd: {what} must be a "
+                             f"contiguous float32 {shape} tensor on "
+                             f"{xi.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    dxi, ddt, dbm, dcm, da, dstate0 = (torch.empty_like(t) for t in (
+        xi, dt, bm, cm, a, dstate))
+    lib = _bwd_lib()
+    work = torch.empty(lib.selective_scan_bwd_workspace(b, s, di, n),
+                       dtype=torch.uint8, device=xi.device)
+    with torch.cuda.device(xi.device):
+        stream = torch.cuda.current_stream(xi.device).cuda_stream
+        err = lib.selective_scan_bwd_launch(
+            xi.data_ptr(), dt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+            a.data_ptr(), ckpt.data_ptr(), dy.data_ptr(), dstate.data_ptr(),
+            dxi.data_ptr(), ddt.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
+            da.data_ptr(), dstate0.data_ptr(), work.data_ptr(), b, s, di, n,
+            stream)
+    if err != 0:
+        raise RuntimeError(
+            f"selective_scan_bwd kernel launch failed: "
+            f"{lib.selective_scan_bwd_error_string(err).decode()} "
+            f"(cudaError {err})")
+    record_launch("selective_scan_bwd")
+    return dxi, ddt, dbm, dcm, da, dstate0
+
+
+def _cost(xi, dt, bm, cm, a, *rest) -> float:
     """State values updated over the scan, the cost hint."""
     return float(xi.numel() * a.shape[-1])
 
@@ -117,14 +194,58 @@ register_kernel(KernelOp(
 ))
 
 
+register_kernel(KernelOp(
+    name="selective_scan_bwd",
+    cuda_body=selective_scan_bwd_cuda,
+    reference_body=selective_scan_bwd_ref,
+    cost_hint=_cost,
+))
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The scan with its backward kernel: ``apply(xi, dt, bm, cm, a, state,
+    backend)`` -> ``(y, state)``, ``state`` updated in place.  The forward
+    keeps xi, dt, bm, cm, a and the states the backward starts from: the
+    CUDA kernel's checkpoints, or (plain version) the initial state."""
+
+    @staticmethod
+    def forward(ctx, xi, dt, bm, cm, a, state, backend):
+        backend = resolve_backend(backend, xi.device)
+        if backend == "cuda":
+            y, _, ckpt = dispatch("selective_scan", xi, dt, bm, cm, a, state,
+                                  backend=backend, checkpoints=True)
+        else:
+            ckpt = state.detach().float().clone()[:, :, None]
+            y, _ = dispatch("selective_scan", xi, dt, bm, cm, a, state,
+                            backend=backend)
+        ctx.mark_dirty(state)
+        ctx.save_for_backward(xi, dt, bm, cm, a, ckpt)
+        ctx.backend = backend
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        xi, dt, bm, cm, a, ckpt = ctx.saved_tensors
+        grads = dispatch("selective_scan_bwd", xi, dt, bm, cm, a, ckpt,
+                         dy.float().contiguous(),
+                         dstate.float().contiguous(), backend=ctx.backend)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad)) + (None,)
+
+
 def selective_scan(xi: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
                    cm: torch.Tensor, a: torch.Tensor, state: torch.Tensor, *,
                    backend: str | None = None) -> tuple:
     """Mamba's selective scan over the S steps of ``xi`` from ``state``
     (updated in place); returns ``(y [B, S, Di] float32, state)``.
+    Differentiable: with grad enabled and an operand that requires it, it
+    runs :class:`SelectiveScan`.
 
     backend: "cuda" (the hand kernel; CUDA tensors), "ref" (plain
     PyTorch, any device), or None = from the operands' device.
     """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xi, dt, bm, cm, a, state)):
+        return SelectiveScan.apply(xi, dt, bm, cm, a, state, backend)
     return dispatch("selective_scan", xi, dt, bm, cm, a, state,
                     backend=backend)

@@ -24,12 +24,16 @@ adds in, and every other operation rounds once, as the kernel's does: so
 the kernel and this, the CPU path of the port, agree bit for bit on the
 card.  (The reference's einsum sums in XLA's order: the CPU tests hold
 this to it within float32 rounding.)
+
+:func:`selective_scan_bwd_ref` is the plain version of the backward
+kernel: autograd over :func:`selective_scan_ref` from the initial state,
+which it recomputes.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["selective_scan_ref", "tree_sum"]
+__all__ = ["selective_scan_ref", "selective_scan_bwd_ref", "tree_sum"]
 
 
 def tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -64,3 +68,19 @@ def selective_scan_ref(xi: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
         y[:, t] = tree_sum(st * cm[:, t, None, :], -1)
     state.copy_(st)
     return y, state
+
+
+def selective_scan_bwd_ref(xi: torch.Tensor, dt: torch.Tensor,
+                           bm: torch.Tensor, cm: torch.Tensor,
+                           a: torch.Tensor, ckpt: torch.Tensor,
+                           dy: torch.Tensor, dstate: torch.Tensor) -> tuple:
+    """``(dxi, ddt, dbm, dcm, da, dstate0)`` of :func:`selective_scan_ref`
+    at the gradients ``dy`` of ``y`` and ``dstate`` of the final state, by
+    autograd over it; ``ckpt[:, :, 0]`` is the initial state (the kernel's
+    other checkpoints are not read)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (xi, dt, bm, cm, a)]
+        state0 = ckpt[:, :, 0].detach().clone().requires_grad_()
+        y, state = selective_scan_ref(*leaves, state0.clone())
+        return torch.autograd.grad((y, state), (*leaves, state0),
+                                   (dy, dstate))

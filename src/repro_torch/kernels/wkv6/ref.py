@@ -21,6 +21,9 @@ the kernel of ``csrc/wkv6.cu`` adds in, and every other operation rounds
 once, as the kernel's does: so the kernel and this, the CPU path of the
 port, agree bit for bit on the card.  (The reference's einsum sums in
 XLA's order: the CPU tests hold this to it within float32 rounding.)
+
+:func:`wkv6_bwd_ref` is the plain version of the backward kernel: autograd
+over :func:`wkv6_ref` from the initial state, which it recomputes.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import torch
 
 from ..selective_scan.ref import tree_sum
 
-__all__ = ["wkv6_ref"]
+__all__ = ["wkv6_ref", "wkv6_bwd_ref"]
 
 
 def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -46,3 +49,18 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         st = st * w[:, t, :, :, None] + kv
     state.copy_(st)
     return o, state
+
+
+def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor, ckpt: torch.Tensor,
+                 do: torch.Tensor, dstate: torch.Tensor) -> tuple:
+    """``(dr, dk, dv, dw, du, dstate0)`` of :func:`wkv6_ref` at the
+    gradients ``do`` of ``o`` and ``dstate`` of the final state, by
+    autograd over it; ``ckpt[:, :, 0]`` is the initial state (the kernel's
+    other checkpoints are not read)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (r, k, v, w, u)]
+        state0 = ckpt[:, :, 0].detach().clone().requires_grad_()
+        o, state = wkv6_ref(*leaves, state0.clone())
+        return torch.autograd.grad((o, state), (*leaves, state0),
+                                   (do, dstate))

@@ -9,7 +9,10 @@ diagonal SSM recurrence -> gated out_proj.  The cache is ``{"conv":
   :func:`~repro_torch.kernels.selective_scan.ops.selective_scan`: on CUDA
   tensors the hand-written kernel (``kernels/csrc/selective_scan.cu``),
   one launch a layer for the whole prompt and one a decode step; on the
-  CPU, or with ``backend="ref"``, the plain version.  Neither builds the
+  CPU, or with ``backend="ref"``, the plain version.  In training
+  (:func:`mamba_train` under autograd) it runs the ``SelectiveScan``
+  autograd function, whose backward is the hand-written kernel
+  ``kernels/csrc/selective_scan_bwd.cu`` on CUDA tensors.  Neither builds the
   reference's ``x * B`` for all steps (``[B, S, Di, N]``): both form it
   one step at a time, the same products.
 * The prefill convolution is the reference's sum of shifted products in

@@ -16,7 +16,10 @@ x_{t-1} (token shift).  The caches are ``{"state": [B, H, hd, hd] float32,
   :func:`~repro_torch.kernels.wkv6.ops.wkv6`: on CUDA tensors the
   hand-written kernel (``kernels/csrc/wkv6.cu``), one launch a layer for
   the whole prompt and one a decode step; on the CPU, or with
-  ``backend="ref"``, the plain version.
+  ``backend="ref"``, the plain version.  In training
+  (:func:`rwkv_tmix_train` under autograd) it runs the ``WKV6`` autograd
+  function, whose backward is the hand-written kernel
+  ``kernels/csrc/wkv6_bwd.cu`` on CUDA tensors.
 * The per-head norm takes the population variance, as ``jnp.var`` does
   (``torch.var`` defaults to the unbiased one): ``correction=0``.
 * The decode functions update their cache **in place** (the kernel

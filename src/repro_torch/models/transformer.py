@@ -31,10 +31,12 @@ without batch dims (``aten.mm``, ``aten.addmm``: the counterpart of
 applies only while grad is enabled.  Attention (and MLA's expanded form)
 runs the hand-written flash kernels on CUDA tensors, forward and, under
 autograd, backward; Mamba's recurrence runs the selective-scan kernel and
-RWKV-6's the WKV kernel in prefill and decode, whose CUDA wrappers refuse
-operands that require grad (their backward kernels are ROADMAP.md's next
-item; on the CPU the plain scans are differentiable).  ``backend="ref"``
-forces the plain versions, to compare the two on the card.  A MoE block
+RWKV-6's the WKV kernel, forward and, under autograd, backward (the
+``SelectiveScan`` and ``WKV6`` autograd functions: a forward kernel that
+keeps state checkpoints, a backward kernel that recomputes from them; on
+the CPU autograd over the plain scans).  Under remat each scan's forward
+runs twice and its backward once a layer.  ``backend="ref"`` forces the
+plain versions, to compare the two on the card.  A MoE block
 runs ``moe_block_local`` on one device plus the shared experts, as the
 reference does without a ``ShardCtx``; its aux loss is summed over the
 layers in ``forward``.  With ``cfg.mtp_depth`` ``init_params`` builds the

@@ -5,8 +5,8 @@ plain version, autograd over ``flash_attention_ref``, on every dtype pair,
 head dim and mask the forward takes, with GQA; the forward's log-sum-exp
 output, which must leave ``o`` bit for bit as it was; two runs giving the
 same bits; the ``FlashAttention`` autograd function reaching q, k and v
-through the model layout (MLA's zero padding included); and the scan
-kernels refusing operands that require grad.
+through the model layout (MLA's zero padding included).  The scans'
+backward kernels are ``tests/test_torch_recurrent_cuda.py``'s.
 
 Tolerances, each relative to the largest value of the plain version's
 gradient: float32 throughout, 1e-4 (both sum in float32, in other orders,
@@ -197,47 +197,3 @@ def test_fused_gradients_reach_q_k_v(dev, dk, dv, g):
     torch.cuda.synchronize()
     assert all(g is not None for g in grads[0])
     assert max(_rel_err(grads[0], grads[1])) <= F32_REL
-
-
-def test_scans_refuse_operands_that_require_grad(dev):
-    from repro_torch.kernels.selective_scan.ops import selective_scan
-    from repro_torch.kernels.wkv6.ops import wkv6
-    b, s, di, n = 1, 8, 16, 16
-    z = lambda *sh: torch.zeros(sh, device=dev)
-    xi = z(b, s, di).requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        selective_scan(xi, z(b, s, di), z(b, s, n), z(b, s, n), z(di, n),
-                       z(b, di, n))
-    with torch.no_grad():   # inference still runs the kernel
-        selective_scan(xi, z(b, s, di), z(b, s, n), z(b, s, n), z(di, n),
-                       z(b, di, n))
-    h, hd = 2, 64
-    r = z(b, s, h, hd).requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wkv6(r, z(b, s, h, hd), z(b, s, h, hd), z(b, s, h, hd), z(h, hd),
-             z(b, h, hd, hd))
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-v0.1-52b"])
-def test_recurrent_loss_refuses_to_train_on_the_card(dev, arch):
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.models import init_params, loss_fn
-    cfg = get_smoke_config(arch)
-    params = init_params(cfg, 0, device=dev)
-    for t in _leaves(params):
-        t.requires_grad_()
-    toks = torch.randint(0, cfg.vocab_size, (1, 16), device=dev)
-    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loss_fn(cfg, params, batch)[0].backward()
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree

@@ -232,3 +232,32 @@ def test_ef_roundtrip_and_compress_match_reference_bit_for_bit():
     tq, ts = compress(torch.from_numpy(x))
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     assert float(ts) == float(js)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_large_leaves_update_a_slice_at_a_time_with_the_same_bits(
+        dtype, monkeypatch):
+    """With ``SLICE_ELEMS`` below the leaves' sizes the update walks each
+    leaf a few rows at a time (3-D, 2-D, 1-D, and a leaf with one row); the
+    parameters and moments are those of the whole-leaf update bit for bit."""
+    import repro_torch.optim.adamw as adamw_mod
+    gen = torch.Generator().manual_seed(0)
+    shapes = {"e": (5, 6, 7), "w": (9, 4), "b": (40,), "one": (1, 50)}
+    params = {k: torch.randn(s, generator=gen).to(dtype)
+              for k, s in shapes.items()}
+    grads = {k: torch.randn(s, generator=gen).to(dtype)
+             for k, s in shapes.items()}
+    cfg = AdamWConfig(warmup_steps=1, total_steps=10)
+    runs = []
+    for slice_elems in (adamw_mod.SLICE_ELEMS, 11):
+        monkeypatch.setattr(adamw_mod, "SLICE_ELEMS", slice_elems)
+        p = {k: t.clone() for k, t in params.items()}
+        state = init_opt_state(p, cfg)
+        for _ in range(2):
+            adamw_update(p, grads, state, cfg)
+        runs.append((p, state))
+    (p1, s1), (p2, s2) = runs
+    for k in shapes:
+        assert torch.equal(p1[k], p2[k])
+        assert torch.equal(s1["m"][k], s2["m"][k])
+        assert torch.equal(s1["v"][k], s2["v"][k])

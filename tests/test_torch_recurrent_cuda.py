@@ -10,6 +10,16 @@ rwkv6-1.6b's widths; and
 the two recurrent models' prefill and decode with kernel and with plain
 version, within 1e-4 of the largest logit (jamba's attention layer runs
 the flash kernel, which is not bit-equal to its plain version).
+The backward kernels (``csrc/selective_scan_bwd.cu``, ``csrc/wkv6_bwd.cu``)
+against autograd over the plain forwards (``*_bwd_ref``): each of the six
+gradients within 1e-4 of its largest |value| (float32; they sum in other
+orders over up to 64 terms and 70 steps), two launches bit-equal, and the
+forward's output, final state and checkpoints the same bits with the
+checkpoints on and off, at ragged shapes (S not a multiple of 16, hd 16,
+N 4 and 8, channels past a block's 16) and unaligned operands; the
+autograd functions reaching them through the wrappers; and the two smoke
+configs' whole-model gradient with the kernels against ``backend="ref"``
+(float32, capacity factor 16), within 1e-4 of each leaf's largest value.
 This file imports no JAX, so it runs as it is on the machine with the
 card (``python -m pytest -m cuda tests/test_torch_recurrent_cuda.py``);
 here every test skips.
@@ -21,9 +31,18 @@ import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.dispatch import launches
-from repro_torch.kernels.selective_scan.ops import selective_scan
-from repro_torch.kernels.wkv6.ops import wkv6
-from repro_torch.models import decode_step, init_cache, init_params, prefill
+from repro_torch.kernels.selective_scan.ops import (selective_scan,
+                                                    selective_scan_bwd_cuda,
+                                                    selective_scan_bwd_ref,
+                                                    selective_scan_cuda)
+from repro_torch.kernels.wkv6.ops import (wkv6, wkv6_bwd_cuda, wkv6_bwd_ref,
+                                          wkv6_cuda)
+from repro_torch.models import (decode_step, init_cache, init_params,
+                                loss_fn, prefill)
+
+#: a backward kernel against autograd over its plain forward, relative to
+#: each gradient's largest |value|
+BWD_REL = 1e-4
 
 
 @pytest.fixture
@@ -179,3 +198,121 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def _bwd_operands(dev, name, shape, unaligned):
+    """Operands from a seed, the forward kernel's checkpoints, random
+    gradients of the output and of the final state."""
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    rand = lambda *sh: torch.randn(*sh, device=dev, generator=g)
+    if name == "wkv6":
+        b, s, h, hd = shape
+        ops = [rand(b, s, h, hd) * 0.5 for _ in range(3)] + [
+            torch.exp(-torch.exp(rand(b, s, h, hd) - 2)), rand(h, hd) * 0.1]
+        state, dout, fwd = rand(b, h, hd, hd), rand(b, s, h, hd), wkv6_cuda
+    else:
+        b, s, di, n = shape
+        ops = [rand(b, s, di), torch.nn.functional.softplus(
+            rand(b, s, di) - 2), rand(b, s, n), rand(b, s, n),
+            -torch.arange(1, n + 1, device=dev,
+                          dtype=torch.float32).repeat(di, 1)]
+        state, dout, fwd = rand(b, di, n), rand(b, s, di), selective_scan_cuda
+    if unaligned:
+        ops, dout = [_unaligned(t) for t in ops], _unaligned(dout)
+    return fwd, ops, state, dout, rand(*state.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,unaligned", [
+    ("wkv6", (2, 37, 3, 16), False), ("wkv6", (2, 32, 2, 16), False),
+    ("wkv6", (1, 70, 2, 64), False), ("wkv6", (3, 21, 5, 64), True),
+    ("wkv6", (2, 1, 2, 16), False),
+    ("selective_scan", (2, 37, 200, 4), False),
+    ("selective_scan", (1, 45, 130, 8), False),
+    ("selective_scan", (2, 32, 64, 16), False),
+    ("selective_scan", (3, 19, 200, 16), True),
+    ("selective_scan", (1, 1, 8200, 16), False)])
+def test_backward_kernel_matches_autograd_over_plain_forward(
+        cuda_device, name, shape, unaligned):
+    fwd, ops, state, dout, dstate = _bwd_operands(cuda_device, name, shape,
+                                                  unaligned)
+    bwd, plain = ((wkv6_bwd_cuda, wkv6_bwd_ref) if name == "wkv6" else
+                  (selective_scan_bwd_cuda, selective_scan_bwd_ref))
+    s_on, s_off = state.clone(), state.clone()
+    out_on, _, ckpt = fwd(*ops, s_on, checkpoints=True)
+    out_off, _ = fwd(*ops, s_off)
+    assert torch.equal(out_on, out_off) and torch.equal(s_on, s_off)
+    assert torch.equal(ckpt[:, :, 0], state)
+    args = (*ops, ckpt, dout, dstate)
+    before = launches(f"{name}_bwd")
+    got = bwd(*args)
+    again = bwd(*args)
+    assert launches(f"{name}_bwd") == before + 2
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        _close(a, b, BWD_REL)
+    _, _, ckpt_again = fwd(*ops, state.clone(), checkpoints=True)
+    assert torch.equal(ckpt_again, ckpt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["wkv6", "selective_scan"])
+def test_wrapper_trains_through_the_backward_kernel(cuda_device, name):
+    """The wrapper with operands that require grad: one forward and one
+    backward launch, gradients of every operand and the initial state
+    against the plain version's autograd."""
+    shape = (2, 37, 3, 64) if name == "wkv6" else (2, 37, 200, 16)
+    fn = wkv6 if name == "wkv6" else selective_scan
+    _, ops, state, dout, dstate = _bwd_operands(cuda_device, name, shape,
+                                                False)
+    grads = []
+    for backend in (None, "ref"):
+        leaves = [t.clone().requires_grad_() for t in ops]
+        state0 = state.clone().requires_grad_()
+        f0, b0 = launches(name), launches(f"{name}_bwd")
+        out, st = fn(*leaves, state0.clone(), backend=backend)
+        loss = (out * dout).sum() + (st * dstate).sum()
+        grads.append(torch.autograd.grad(loss, leaves + [state0]))
+        assert launches(name) - f0 == (backend is None)
+        assert launches(f"{name}_bwd") - b0 == (backend is None)
+    torch.cuda.synchronize()
+    for a, b in zip(*grads):
+        _close(a, b, BWD_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-v0.1-52b"])
+def test_recurrent_model_gradient_kernel_matches_plain_on_card(cuda_device,
+                                                               arch):
+    """``loss_fn`` and every leaf's gradient of the smoke config (float32,
+    capacity factor 16) with the kernels against the plain versions."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=16.0))
+    params = init_params(cfg, 0, device=cuda_device)
+    leaves = list(_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 41), device=cuda_device,
+                         generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    results = []
+    for backend in (None, "ref"):
+        before = launches("wkv6_bwd") + launches("selective_scan_bwd")
+        loss, _ = loss_fn(cfg, params, batch, backend=backend)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        ran = launches("wkv6_bwd") + launches("selective_scan_bwd") - before
+        assert (ran > 0) == (backend is None)
+        results.append((loss.detach(), grads))
+    (lk, gk), (lr, gr) = results
+    _close(lk.reshape(1), lr.reshape(1), BWD_REL)
+    for a, b in zip(gk, gr):
+        assert (a is None) == (b is None)
+        if b is not None and float(b.abs().max()) > 0:
+            _close(a, b, BWD_REL)
+

@@ -7,7 +7,8 @@ runs the smoke's environment and build phases, then ``phase_model``
 the dense and frontend configs), ``phase_recurrent_families`` (rwkv6-1.6b
 and jamba's period) or ``phase_training`` (the flash backward kernel,
 gemma3-1b's gradient and its training killed and resumed, MoE training,
-the ``train_lm`` twin) on the card, with the smoke's settings, and writes
+the ``train_lm`` twin, the scans' backward kernels and rwkv6-1.6b's and
+jamba's training) on the card, with the smoke's settings, and writes
 the phase's record to ``chiprun_out/<phase>.json``.  Needs a CUDA card and
 ``nvcc``; the recurrent phase takes some 2 minutes with the build.
 """

@@ -2,14 +2,15 @@
 
     python tools/scan_kernels.py [--checkout DIR] [--tag TAG]
 
-builds ``selective_scan`` and ``wkv6`` (``src/repro_torch/kernels/csrc``
+builds ``selective_scan``, ``wkv6`` and their backward kernels
+``selective_scan_bwd`` and ``wkv6_bwd`` (``src/repro_torch/kernels/csrc``
 of the repository, or of the checkout ``DIR``, e.g. an older commit
 unpacked with ``git archive``), prints what ``nvcc -Xptxas=-v`` reported
 for each instance of each kernel (registers, spills, shared memory), holds
-each kernel against its plain version on random float32 operands from a
-seed, outputs and final states bit for bit, at small ragged shapes, at a
-decode step and at 2,048 steps of the main path's width, then times each
-kernel at the main path's shapes:
+each forward kernel against its plain version on random float32 operands
+from a seed, outputs and final states bit for bit, at small ragged shapes,
+at a decode step and at 2,048 steps of the main path's width, then times
+each kernel at the main path's shapes:
 
 * the 32k prefill layer, by CUDA events (median of 5): a jamba
   Mamba layer (B 1, S 32,768, Di 8,192, N 16) and an rwkv6-1.6b layer
@@ -18,9 +19,19 @@ kernel at the main path's shapes:
   launches under ``torch.profiler`` (median; a host-timed loop would time
   the wrapper's Python).
 
+The backward kernels are held against autograd over the plain forwards
+(``chip_smoke.check_scan_bwd``: each gradient within 1e-4 of its largest
+value, two launches bit-equal, the forward's bits unchanged with its
+checkpoints on) at the smoke's small ragged and unaligned shapes and at
+the training shapes, where they are timed (CUDA events, median of 5, the
+plain backward beside them, and each of the two launches' device time by
+the profiler): an rwkv6-1.6b layer at B 4 x 4,096 and a jamba Mamba layer
+at B 1 x 4,096.
+
 The profiler's trace also gives each launch's grid and block, which are
 printed.  The results go to ``chiprun_out/scan_kernels[-TAG].json``.
-Needs a CUDA card and ``nvcc``; some 30 s with the build.
+Needs a CUDA card and ``nvcc``; some 90 s with the build (a backward
+checkout without the backward kernels times only the forwards).
 """
 import argparse
 import json
@@ -49,7 +60,9 @@ if not torch.cuda.is_available():
     sys.exit("tools/scan_kernels.py needs a CUDA card")
 card = cs.phase_environment()
 print(f"[checkout] {CHECKOUT}")
-_build.build(["selective_scan", "wkv6"])
+SCANS = [n for n in ("selective_scan", "wkv6", "selective_scan_bwd",
+                     "wkv6_bwd") if n in _build.KERNELS]
+_build.build(SCANS)
 report: dict = {"checkout": str(CHECKOUT), "card": card, "build": {}}
 
 
@@ -76,7 +89,7 @@ def ptxas(name: str) -> list:
     return out
 
 
-for name in ("selective_scan", "wkv6"):
+for name in SCANS:
     report["build"][name] = ptxas(name)
     for inst in report["build"][name]:
         args_ = ", ".join(map(str, inst["template"]))
@@ -105,15 +118,6 @@ def wkv_operands(b, s, h, hd):
             rand(b, s, h, hd) * 0.5,
             torch.exp(-torch.exp(rand(b, s, h, hd) - 2)),
             rand(h, hd) * 0.1, rand(b, h, hd, hd))
-
-
-def unaligned(t):
-    """``t`` copied to a contiguous view 4 bytes past a 16-byte boundary,
-    where the kernels stage with 4-byte copies."""
-    buf = torch.empty(t.numel() + 1, device=dev)
-    view = buf[1:].view(t.shape)
-    view.copy_(t)
-    return view
 
 
 def profiled(fn, kernel: str, n: int = 50) -> dict:
@@ -154,7 +158,7 @@ for name, fn, operands, checks, layer, width in cases:
     for shape in checks + (("unaligned",) + checks[0],):
         *ops, state = operands(*shape[-4:])
         if shape[0] == "unaligned":
-            ops = [unaligned(t) for t in ops]
+            ops = [cs._unaligned(t) for t in ops]
         s_k, s_r = state.clone(), state.clone()
         out_k, _ = fn(*ops, s_k)
         out_r, _ = fn(*ops, s_r, backend="ref")
@@ -187,6 +191,42 @@ for name, fn, operands, checks, layer, width in cases:
               f"{row['registers_per_thread']}, shared "
               f"{row['shared_memory']}")
         del ops, state, ops_state
+        torch.cuda.empty_cache()
+# the backward kernels: small shapes, then the training shapes, timed
+if "wkv6_bwd" in SCANS:
+    for key, rec in cs.scan_bwd_small(dev).items():
+        report.setdefault("bwd_checks", {})[key] = rec["max_abs_err"]
+    for name, shape, kernel in (
+            ("wkv6_bwd", (4, 4096, 32, 64), "wkv6_bwd_"),
+            ("selective_scan_bwd", (1, 4096, 8192, 16),
+             "selective_scan_bwd_")):
+        fwd, bwd, _ = cs._scan_fns(name)
+        *ops, state = (wkv_operands if name == "wkv6_bwd"
+                       else scan_operands)(*shape)
+        dout = rand(*ops[0].shape)
+        _, _, ckpt = fwd(*ops, state.clone(), checkpoints=True)
+        bwd_args = (*ops, ckpt, dout, torch.randn_like(state))
+        try:
+            row = cs.check_scan_bwd(name, bwd_args, f"{shape}")
+        except AssertionError as e:
+            failed.append(f"{name} {shape}: {e}")
+            continue
+        row["device_ms"] = {}
+        for part in ("kernel", "finish"):
+            prof = profiled(lambda: bwd(*bwd_args), kernel + part, n=5)
+            row["device_ms"][part] = prof["device_ms"]
+            row[f"{part}_launch"] = {k: prof[k] for k in (
+                "grid", "block", "registers_per_thread", "shared_memory")}
+        report[name] = {str(shape): row}
+        print(f"[time] {name} {shape}: {row['ms']:.4f} ms (CUDA events, "
+              f"median of {REPS}), device: scan "
+              f"{row['device_ms']['kernel']:.4f} ms, sums "
+              f"{row['device_ms']['finish']:.4f} ms (profiler); bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"{row['ms'] / row['bound_ms']:.1f}x; plain "
+              f"{row['plain_ms']:.1f} ms; scan launch "
+              f"{row['kernel_launch']}")
+        del ops, state, dout, ckpt, bwd_args
         torch.cuda.empty_cache()
 tag = f"-{args.tag}" if args.tag else ""
 out = ROOT / "chiprun_out" / f"scan_kernels{tag}.json"

@@ -32,19 +32,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    must launch ``uts_expand`` (at most 5 times on the sequential one, at
    most once per task on the elastic ones, relaunches aside) and
    ``uts_hash`` (the root digest); then one more elastic run (batching
-   off) under ``torch.profiler``: the device's idle share and every
-   ``uts_expand`` launch's duration;
+   off) at depth 12 under ``torch.profiler``: the device's idle share and
+   every ``uts_expand`` launch's duration;
 5. Mariani-Silver main path: the paper's sd-64 geometry (64-pixel seed
    rectangles, depth 5, split 2, max dwell 5,000,000) on a 512x512 image
    (the paper's is 4096x4096: some 500,000 tasks, which the host-bound
    elastic pool, at a few hundred tasks a second, cannot finish inside
    the smoke's time limit), through
    ``run_irregular`` on the elastic pool with and without batching, then
-   once more under ``torch.profiler`` (the device's idle share, every
-   ``mandelbrot`` launch's duration, and the share of the wall time in
-   which a launch over 1 ms ran); all three images must equal
-   Mariani-Silver applied to ``naive_render``'s dwell map on the card,
-   pixel for pixel; then, at the paper's full size, the dwell map, the
+   once more at 256 x 256 under ``torch.profiler`` (the device's idle
+   share, every ``mandelbrot`` launch's duration, and the share of the
+   wall time in which a launch over 1 ms ran); all three images must
+   equal Mariani-Silver applied to ``naive_render``'s dwell map of their
+   size on the card, pixel for pixel; then, at the paper's full size, the dwell map, the
    number of tasks Mariani-Silver over it dispatches, and the plane
    through the kernel and its full-iteration build alone, bit-equal;
 6. flash attention at fixed shapes (run right after phase 3): the kernel
@@ -199,22 +199,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    tokens/s, ``mfu``, peak memory, two steps under the profiler,
    checkpoint bytes and seconds; deepseek-moe-16b cut to 2 layers trained
    3 steps (finite, ``router_aux`` > 0, every expert that got pairs a
-   finite non-zero gradient); the ``train_lm`` twin at its defaults (the
-   loss falls); then the recurrent families (``train_recurrent``): the
+   finite non-zero gradient); the ``train_lm`` twin at 100 of its 200
+   steps (the loss falls); then the recurrent families (``train_recurrent``): the
    scans' backward kernels (``csrc/wkv6_bwd.cu``,
    ``csrc/selective_scan_bwd.cu``) against autograd over their plain
-   forwards on the operands their ops were given while a whole-model
-   gradient ran (an rwkv6-1.6b layer, B 1, S 4,096; a jamba Mamba layer
-   from the jamba steps below) and at small ragged and unaligned shapes:
+   forwards on the operands their ops were given while a model trained
+   (an rwkv6-1.6b layer at its training shape, B 4 x 4,096, from the
+   rwkv6-1.6b steps below; a jamba Mamba layer, B 1 x 4,096, from the
+   jamba steps below) and at small ragged and unaligned shapes:
    each gradient within ``SCAN_BWD_TOL`` of its largest value, two
    launches bit-equal, the forward's output, final state and checkpoints
    the same bits with its checkpoints on and off, kernel time (median of
    5), the plain backward's (one run: autograd over the plain loop takes
    some 9-11 s at 4,096 steps) and the bound (``scan_bwd_bound``);
-   rwkv6-1.6b's whole model at full width and depth and jamba at full
-   width cut to its blocks 2 and 4 (Mamba + MLP, attention + MLP; no MoE, whose routing
-   flips between kernel and plain version), each at B 1 x 1,024 (the
-   plain scans at 4,096 would take minutes) with float32 weights (with
+   rwkv6-1.6b's whole model at full width cut to 8 of its 24 layers and
+   jamba at full width cut to its blocks 2 and 4 (Mamba + MLP, attention
+   + MLP; no MoE, whose routing flips between kernel and plain version),
+   each at B 1 x 1,024 (the plain scans at 4,096 would take minutes, and
+   over 24 layers some 85 s at 1,024) with float32 weights (with
    bf16 the gradient is chaotic at float32 rounding's scale:
    ``tools/scan_grad_control.py``), kernels against ``backend="ref"``
    under gemma3-1b's gate; rwkv6-1.6b at full width and
@@ -289,6 +291,11 @@ UTS_DEPTH = 14
 #: Mariani-Silver: the paper's dwell, on a 512x512 image (phase 5)
 MS_SIDE = 512
 MS_DWELL = 5_000_000
+#: the runs under the profiler (phases 4 and 5), cut for the smoke's time:
+#: UTS to depth 12, Mariani-Silver to 256x256 (some 7 and 27 s less on a
+#: fast host, twice that on a slow one)
+UTS_PROFILE_DEPTH = 12
+MS_PROFILE_SIDE = 256
 #: the plain dwell runs a sampled main-path launch at its own max_dwell
 #: only if every point escapes within this many iterations; else at this
 MS_SAMPLE_CAP = 4096
@@ -1350,12 +1357,14 @@ def phase_uts(dev, depth: int) -> dict:
     if len(counts) != 1:
         raise AssertionError(f"UTS depth {depth}: counts disagree {runs}")
     samples = check_uts_samples(tap)
-    # where the time of an elastic run goes: once more (batching off),
-    # under the profiler, outside the counted runs above
+    # where the time of an elastic run goes: the same path (batching off)
+    # at UTS_PROFILE_DEPTH, under the profiler, outside the counted runs
+    params = UTSParams(seed=19, b0=4.0, max_depth=UTS_PROFILE_DEPTH)
     (count, tasks), prof = device_timeline(elastic(False), "uts_expand")
-    if count != UTS_DEPTH14_NODES:
+    if count != UTS_DEEP_NODES[UTS_PROFILE_DEPTH]:
         raise AssertionError(f"UTS profiled run: {count} nodes")
-    log(f"[uts] profiled elastic run (batching off): {prof['wall_s']:.3f} s "
+    log(f"[uts] profiled elastic run (depth {UTS_PROFILE_DEPTH}, batching "
+        f"off): {prof['wall_s']:.3f} s "
         f"wall, {tasks} tasks, {prof['device_ops']} device operations, busy "
         f"{prof['busy_s']:.3f} s, idle share {prof['idle_share']:.4f}; "
         f"uts_expand launches {prof['launches']}")
@@ -1432,10 +1441,10 @@ def phase_ms(dev, side: int, max_dwell: int, clock_hz: float) -> dict:
 
     p = ms_params(side, max_dwell)
 
-    def elastic(batching: bool):
+    def elastic(batching: bool, params=p):
         def go():
             with elastic_pool() as pool:
-                return run_irregular(pool, ms_spec(p, device=dev),
+                return run_irregular(pool, ms_spec(params, device=dev),
                                      batching=batching)
         return go
 
@@ -1458,11 +1467,13 @@ def phase_ms(dev, side: int, max_dwell: int, clock_hz: float) -> dict:
                 f"{r.output['filled']}, evaluated {r.output['evaluated']}, "
                 f"{n} mandelbrot launches")
     samples = check_mandelbrot_samples(tap, MS_SAMPLE_CAP)
-    # where the time of one run goes: the same run once more (batching
-    # off), under the profiler, outside the counted runs above
-    r, prof = device_timeline(elastic(False))
-    images["profiled"] = r.output["image"]
-    log(f"[ms] profiled run (batching off): {prof['wall_s']:.3f} s wall, "
+    # where the time of one run goes: the same path (batching off) at
+    # MS_PROFILE_SIDE, under the profiler, outside the counted runs above
+    p_prof = ms_params(MS_PROFILE_SIDE, max_dwell)
+    r, prof = device_timeline(elastic(False, p_prof))
+    prof_image = r.output["image"]
+    log(f"[ms] profiled run ({MS_PROFILE_SIDE}^2, batching off): "
+        f"{prof['wall_s']:.3f} s wall, "
         f"{prof['device_ops']} device operations, busy {prof['busy_s']:.3f} "
         f"s, idle share {prof['idle_share']:.4f}; mandelbrot launches "
         f"{prof['launches']}; launches over {MS_LONG_MS} ms run during "
@@ -1484,8 +1495,16 @@ def phase_ms(dev, side: int, max_dwell: int, clock_hz: float) -> dict:
             raise AssertionError(
                 f"MS {name}: image differs from Mariani-Silver over "
                 f"naive_render on {int((img != expected).sum())} pixels")
+    prof_expected, _ = mariani_silver_over(naive_render(p_prof, device=dev),
+                                           p_prof)
+    if not np.array_equal(prof_image, prof_expected):
+        raise AssertionError(
+            f"MS profiled {MS_PROFILE_SIDE}^2: image differs from "
+            f"Mariani-Silver over naive_render on "
+            f"{int((prof_image != prof_expected).sum())} pixels")
     log(f"[ms] both images equal Mariani-Silver over naive_render (and "
-        f"naive_render itself on all but those {sampled} pixels)")
+        f"naive_render itself on all but those {sampled} pixels), and the "
+        f"profiled {MS_PROFILE_SIDE}^2 image its own")
     samples.update(time_border_strips(oracle, p, rects, dev, MS_SAMPLE_CAP,
                                       clock_hz))
     return {"launches": {k: r["launches"] for k, r in runs.items()},
@@ -4509,6 +4528,9 @@ GRAD_LOSS_RTOL, GRAD_NORM_RTOL, GRAD_MIN_COS = 1e-3, 1e-3, 0.999
 #: deepseek-moe-16b at full width, 28 layers cut to its two stages' first
 #: (one dense layer, one MoE layer), batch 1 of TRAIN_S, 3 steps
 MOE_TRAIN_STEPS = 3
+#: the train_lm twin's steps: its example's 200 cut to 100 for the smoke's
+#: time, the fewest at which it asserts that the loss fell
+TRAIN_LM_STEPS = 100
 
 
 def flash_bwd_bound(q2, k2, v2, causal: bool, window) -> tuple:
@@ -4951,12 +4973,14 @@ SCAN_BWD_TOL = 1e-4
 #: G*dt, G*Pe, and the dx, ddt, dA, dB, dC terms with their sums, G*e
 SCAN_BWD_OPS = {"selective_scan_bwd": 24, "wkv6_bwd": 14}
 #: the recurrent configs' whole-model gradient, kernels against the plain
-#: versions, at B 1 x 1,024 (the plain backward over rwkv6-1.6b's 24 layers
-#: takes some 85 s there, and would take minutes at 4,096), with float32
-#: weights: with the configs' bf16 the gradient is chaotic at float32
-#: rounding's scale (tools/scan_grad_control.py: the plain backward times
-#: 1 + 2**-23 noise misses the gate against itself)
+#: versions, at B 1 x 1,024 (the plain backward would take minutes at
+#: 4,096), with float32 weights: with the configs' bf16 the gradient is
+#: chaotic at float32 rounding's scale (tools/scan_grad_control.py: the
+#: plain backward times 1 + 2**-23 noise misses the gate against itself)
 GRAD_CHECK_S = 1024
+#: rwkv6-1.6b's layers in that check: 8 of its 24 at full width (the plain
+#: backward over all 24 takes some 85 s; training runs all 24 below)
+GRAD_CHECK_RWKV_LAYERS = 8
 #: rwkv6-1.6b trained at train_4k's 4,096, the batch cut from 256 to 4 (its
 #: float32 logits and their gradient are 4.3 GB each), 8 steps
 RWKV_TRAIN_B, RWKV_TRAIN_STEPS = 4, 8
@@ -5107,11 +5131,12 @@ def scan_bwd_small(dev) -> dict:
     return out
 
 
-def train_rwkv(dev, paths: dict) -> dict:
+def train_rwkv(dev, paths: dict, tap) -> dict:
     """rwkv6-1.6b at full width and depth: 8 steps of 4 x 4,096 through
     ``train`` (every step 48 ``wkv6`` and 24 ``wkv6_bwd`` launches: remat
-    runs each layer's forward twice), the loss falling; step 0's gradients
-    taken twice, bit-equal; two more steps under the profiler."""
+    runs each layer's forward twice), the loss falling, ``tap`` (an
+    ``OperandTap``) open around it; step 0's gradients taken twice,
+    bit-equal; two more steps under the profiler."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import ShapeSpec
@@ -5125,12 +5150,13 @@ def train_rwkv(dev, paths: dict) -> dict:
                 "selective_scan": 0, "selective_scan_bwd": 0,
                 "flash_attention_fwd": 0, "flash_attention_bwd": 0}
     torch.cuda.reset_peak_memory_stats()
-    run, wall, _ = counted_path(
-        f"{RWKV_ARCH} train", lambda: train(
-            RWKV_ARCH, smoke=False, steps=RWKV_TRAIN_STEPS,
-            global_batch=RWKV_TRAIN_B, seq_len=TRAIN_S, peak_lr=TRAIN_LR,
-            log_every=1, device=dev),
-        {k: v * RWKV_TRAIN_STEPS for k, v in per_step.items()}, paths)
+    with tap:
+        run, wall, _ = counted_path(
+            f"{RWKV_ARCH} train", lambda: train(
+                RWKV_ARCH, smoke=False, steps=RWKV_TRAIN_STEPS,
+                global_batch=RWKV_TRAIN_B, seq_len=TRAIN_S,
+                peak_lr=TRAIN_LR, log_every=1, device=dev),
+            {k: v * RWKV_TRAIN_STEPS for k, v in per_step.items()}, paths)
     rec = {"batch": RWKV_TRAIN_B, "seq": TRAIN_S, "steps": RWKV_TRAIN_STEPS,
            "losses": run["losses"], "wall_s": wall,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -5189,43 +5215,35 @@ def train_rwkv(dev, paths: dict) -> dict:
 
 def train_recurrent(dev, paths: dict) -> dict:
     """The recurrent families' training on the card: (a) each scan's
-    backward kernel on the operands its op was given while a whole-model
-    gradient ran (an rwkv6-1.6b layer, B 1, S 4,096; a jamba Mamba layer
-    from (d)'s steps), and at small ragged and unaligned shapes; (b) the
-    whole-model gradient at B 1 x 1,024 with float32 weights
-    (``GRAD_CHECK_S``), kernels against ``backend="ref"``, of rwkv6-1.6b
-    at full width and depth and of jamba at full width cut to its blocks 2
-    and 4 (Mamba + MLP, attention + MLP; no MoE block, whose routing flips
-    between kernel and plain version); (c) rwkv6-1.6b trained
-    (``train_rwkv``); (d) jamba at full width cut to its blocks 3 and 4
-    (Mamba + MoE, attention + MLP) trained 3 steps of 1 x 4,096."""
+    backward kernel on the operands its op was given while a model trained
+    (an rwkv6-1.6b layer at B 4 x 4,096 from (c)'s steps; a jamba Mamba
+    layer at B 1 x 4,096 from (d)'s), and at small ragged and unaligned
+    shapes; (b) the whole-model gradient at B 1 x 1,024 with float32
+    weights (``GRAD_CHECK_S``), kernels against ``backend="ref"``, of
+    rwkv6-1.6b at full width cut to ``GRAD_CHECK_RWKV_LAYERS`` layers and
+    of jamba at full width cut to its blocks 2 and 4 (Mamba + MLP,
+    attention + MLP; no MoE block, whose routing flips between kernel and
+    plain version); (c) rwkv6-1.6b trained (``train_rwkv``); (d) jamba at
+    full width cut to its blocks 3 and 4 (Mamba + MoE, attention + MLP)
+    trained 3 steps of 1 x 4,096."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import Stage, init_params
     out: dict = {"kernel": {}}
     t0 = time.monotonic()
-    # (a) and (b), rwkv6-1.6b
+    # (b), rwkv6-1.6b cut to GRAD_CHECK_RWKV_LAYERS layers
     cfg = get_config(RWKV_ARCH)
+    cfg = dataclasses.replace(cfg, dtype="float32", stages=tuple(
+        Stage(GRAD_CHECK_RWKV_LAYERS, st.pattern) for st in cfg.stages))
     params = init_params(cfg, 0, device=dev)
-    toks = family_inputs(cfg, TRAIN_S + 1, dev, seed=4)
-    with OperandTap("wkv6_bwd", k=1) as tap:
-        model_grads(cfg, params, {"tokens": toks[:, :-1],
-                                  "labels": toks[:, 1:]}, None)
-    (args, _), = (x for v in tap.samples.values() for x in v)
-    del tap, params
-    torch.cuda.empty_cache()
-    cfg = dataclasses.replace(cfg, dtype="float32")
-    params = init_params(cfg, 0, device=dev)
+    toks = family_inputs(cfg, GRAD_CHECK_S + 1, dev, seed=4)
     out[RWKV_ARCH] = {"grad": compare_grads(
-        cfg, params, {"tokens": toks[:, :GRAD_CHECK_S],
-                      "labels": toks[:, 1:GRAD_CHECK_S + 1]},
-        f"{RWKV_ARCH} float32")}
+        cfg, params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]},
+        f"{RWKV_ARCH} {GRAD_CHECK_RWKV_LAYERS} layers, float32"),
+        "grad_reduced": {"n_layers": [24, GRAD_CHECK_RWKV_LAYERS]}}
     del params
     torch.cuda.empty_cache()
-    out["kernel"]["wkv6_bwd"] = check_scan_bwd(
-        "wkv6_bwd", args, f"{RWKV_ARCH} layer (B 1, S {TRAIN_S})")
-    del args
     out["small"] = scan_bwd_small(dev)
     # (b), jamba's blocks 2 and 4
     full = get_config(JAMBA_ARCH)
@@ -5241,8 +5259,16 @@ def train_recurrent(dev, paths: dict) -> dict:
                                    "Mamba + MLP, attention + MLP"}}
     del params
     torch.cuda.empty_cache()
-    # (c)
-    out[RWKV_ARCH]["train"] = train_rwkv(dev, paths)
+    # (c), and (a)'s rwkv6-1.6b layer: a wkv6_bwd launch of its steps
+    tap = OperandTap("wkv6_bwd", k=1)
+    out[RWKV_ARCH]["train"] = train_rwkv(dev, paths, tap)
+    (args, _), = (x for v in tap.samples.values() for x in v)
+    del tap
+    out["kernel"]["wkv6_bwd"] = check_scan_bwd(
+        "wkv6_bwd", args,
+        f"{RWKV_ARCH} layer (B {RWKV_TRAIN_B}, S {TRAIN_S})")
+    del args
+    torch.cuda.empty_cache()
     # (d), jamba's blocks 3 and 4, its Mamba layer's backward tapped
     cfg = dataclasses.replace(full, stages=(Stage(1, pattern[3:5]),))
     tap = OperandTap("selective_scan_bwd", k=1)
@@ -5333,9 +5359,10 @@ def phase_training(dev) -> dict:
     torch.cuda.empty_cache()
     from repro_torch.examples import train_lm
     lm = train_lm.make_100m()
-    lm_out, lm_wall, _ = counted_path("train_lm twin", lambda: train_lm.main(
-        dev), {"flash_attention_fwd": 2 * lm.n_layers * 200,
-               "flash_attention_bwd": lm.n_layers * 200}, paths)
+    lm_out, lm_wall, _ = counted_path(
+        "train_lm twin", lambda: train_lm.main(dev, steps=TRAIN_LM_STEPS),
+        {"flash_attention_fwd": 2 * lm.n_layers * TRAIN_LM_STEPS,
+         "flash_attention_bwd": lm.n_layers * TRAIN_LM_STEPS}, paths)
     out["train_lm"] = {k: lm_out[k] for k in ("first_loss", "final_loss",
                                                "tok_per_s", "steps")}
     out["train_lm"]["wall_s"] = lm_wall

@@ -25,41 +25,64 @@
 //                                written
 //   work                         scratch (selective_scan_bwd_workspace)
 //
-// What bounds it: on paper the float operations (24 a state value and step
-// with two exps: the recomputed step, the gradient's) against the
-// bytes (7 arrays of B S Di read or written, the checkpoints, and B and C's
-// partials), of one order at jamba's width; in practice, as in the forward,
-// instruction issue and latency, the exps among them.  The design keeps the
-// forward's layout:
+// What bounds it: on paper the bytes (7 arrays of B S Di read or written,
+// and the checkpoints: 0.24 ms at a jamba Mamba layer, B 1 x 4,096) ahead
+// of the float operations (24 a state value and step, an exp as one, at
+// 67 TFLOP/s, a rate only FMAs reach: the bound's operations side assumes
+// them; the recompute's stay unfused, as the forward's); in practice
+// shared memory, the exp and latency, at 5 blocks (10 warps) an SM, the
+// most that keeps every cluster of jamba's Di 8,192 resident at once (168
+// registers a thread, 43 KB of shared memory a block).  The design keeps
+// the forward's layout:
 //   * a channel is held by kLanes = 4 neighbouring lanes, lane l owning the
 //     N / 4 contiguous state values n in [l N/4, (l + 1) N/4); a block
-//     holds kChannels = 16 channels of one batch row (64 threads);
+//     holds kChannels = 16 channels of one batch row (64 threads), and
+//     kCluster = 8 neighbouring blocks (128 channels) form a thread block
+//     cluster; the grid is padded to whole clusters, a block past Di adding
+//     exact zeros;
 //   * the block walks the checkpoints' chunks of 16 steps from the last:
 //     it stages the chunk's x, dt and dy of its channels and the rows of B
 //     and C in shared memory (cp.async, 16 bytes a copy when every operand
-//     is 16-byte aligned and Di a multiple of 4, else 4), reads the
-//     checkpoint before the chunk, recomputes the chunk's states with the
-//     forward's own operations (so their bits are the forward's) into
-//     shared memory, a thread's own values a step, then runs the 16 steps
-//     backwards;
-//   * dx and ddt sum over n: a lane's values, then xor 1, 2, as the
-//     forward's y; dB and dC sum over the channels: a reduce-scatter over
-//     the warp's 8 channels (at each xor level a lane hands its partner
-//     half of its values and adds the partner's half of the ones it keeps),
-//     then the block's two warps in shared memory, then one float32 partial
-//     a block; a second small pass adds the blocks' partials, and sums dA's
-//     per-batch partials.  No float atomics: two launches give the same
-//     bits.
-// Every sum is the pairwise tree of the plain version's tree_sum
-// (kernels/selective_scan/ref.py): over n, and over the Di channels (a
-// block's 16, then the blocks', the odd one out going up a level as it
-// is; channels past Di add exact zeros).  Every float operation but the
-// exp is an intrinsic (__fmul_rn, __fadd_rn); the exp is expf, as the
-// forward's.  State sizes N are 4, 8 and 16.
+//     is 16-byte aligned and Di a multiple of 4, else 4; the chunk before's
+//     copies and checkpoint go in flight as soon as the walk has read the
+//     stage), and recomputes the chunk's states from its checkpoint with
+//     the forward's own operations (so their bits are the forward's) into
+//     shared memory, with each step's e_t = expf(dt_t A) beside them: the
+//     walk back reuses it, so every exp is computed once;
+//   * the walk, unrolled at compile time (a ragged last chunk has its own
+//     instance, each step guarded), carries one chain, G's (an FMA and a
+//     product a value); each lane sums its own values of dx and ddt (FMAs)
+//     into 2 x 16 registers, summed over the channel's 4 lanes once a chunk
+//     by one reduce-scatter over (quantity, step) (24 shuffles where a sum
+//     at a time took 64);
+//   * dB and dC sum over the channels: a reduce-scatter over the warp's 8
+//     channels a step, into shared memory; after the chunk the block adds
+//     its two warps' sums and arrives at the cluster's barrier; while the
+//     next chunk's states are recomputed the other blocks arrive, and then
+//     each block sums its share of the chunk's (step, quantity, n) over
+//     the cluster's 8 blocks, read from their shared memory
+//     (map_shared_rank), and writes one float32 partial a cluster; a
+//     second small launch adds the clusters' partials (64 at jamba's Di
+//     8,192, where one a block made 512) and sums dA's per-batch partials.
+//     No float atomics: two launches give the same bits.
+// Sum orders (fixed, so deterministic; not the plain version's, which the
+// tests hold the kernel to within 1e-4 of each gradient's largest value):
+// dx and ddt a lane's values in order of n as an FMA chain (ddt's two
+// terms a value in turn), then the channel's lanes in the pairwise tree;
+// dB and dC over the 128 channels of a cluster in the pairwise tree
+// (channels at xor 4, 8, 16 in a warp, then warps and blocks), then over
+// the clusters in tree_sum's order (kernels/selective_scan/ref.py); dA over
+// t from the last step as an FMA chain, then over b in order.  The
+// gradient's own products contract to FMAs; the recomputed states use the
+// forward's operations (__fmul_rn, __fadd_rn, expf).  State sizes N are 4,
+// 8 and 16.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -68,6 +91,7 @@ constexpr int kChannels = 16;  // channels of one batch row a block
 constexpr int kThreads = kChannels * kLanes;  // threads a block
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 16;     // steps between two checkpoints
+constexpr int kCluster = 8;    // blocks a cluster (the portable most)
 
 template <int W>
 __device__ __forceinline__ void copy_async(float* dst, const float* src) {
@@ -81,9 +105,12 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src) {
                  "l"(src));
   }
 }
-__device__ __forceinline__ void commit_and_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
+// the cluster's barrier in two halves; see csrc/wkv6_bwd.cu
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 template <int Lo, int Len, int N>
@@ -91,37 +118,37 @@ __device__ __forceinline__ float tree_sum(const float (&v)[N]) {
   if constexpr (Len == 1) {
     return v[Lo];
   } else {
-    return __fadd_rn(tree_sum<Lo, Len / 2>(v),
-                     tree_sum<Lo + Len / 2, Len / 2>(v));
+    return tree_sum<Lo, Len / 2>(v) + tree_sum<Lo + Len / 2, Len / 2>(v);
   }
 }
 
-// Sums v over the lanes that differ from this one in the bits M, 2 M, ...,
-// 16, in that order; see csrc/wkv6_bwd.cu.
-template <int Cnt, int M, int K>
+// Sums v over the lanes that differ from this one in the bits M, 2 M, ...
+// below End, in that order; see csrc/wkv6_bwd.cu.
+template <int Cnt, int M, int End, int K>
 __device__ __forceinline__ void scatter_sum(float (&v)[K], int lane,
                                             int& off) {
-  if constexpr (M < 32) {
+  if constexpr (M < End) {
     if constexpr (Cnt > 1) {
+      static_assert(Cnt % 2 == 0, "halves at every level");
       constexpr int H = Cnt / 2;
       const bool hi = (lane & M) != 0;
 #pragma unroll
       for (int q = 0; q < H; ++q) {
         const float give = hi ? v[q] : v[q + H];
         const float mine = hi ? v[q + H] : v[q];
-        v[q] = __fadd_rn(mine, __shfl_xor_sync(0xffffffffu, give, M));
+        v[q] = mine + __shfl_xor_sync(0xffffffffu, give, M);
       }
       if (hi) off += H;
-      scatter_sum<H, 2 * M>(v, lane, off);
+      scatter_sum<H, 2 * M, End>(v, lane, off);
     } else {
-      v[0] = __fadd_rn(v[0], __shfl_xor_sync(0xffffffffu, v[0], M));
-      scatter_sum<1, 2 * M>(v, lane, off);
+      v[0] = v[0] + __shfl_xor_sync(0xffffffffu, v[0], M);
+      scatter_sum<1, 2 * M, End>(v, lane, off);
     }
   }
 }
 
-__host__ __device__ constexpr int scattered(int cnt, int m) {
-  return m >= 32 ? cnt : scattered(cnt > 1 ? cnt / 2 : 1, 2 * m);
+__host__ __device__ constexpr int scattered(int cnt, int m, int end) {
+  return m >= end ? cnt : scattered(cnt > 1 ? cnt / 2 : 1, 2 * m, end);
 }
 
 template <int N>
@@ -132,12 +159,17 @@ struct __align__(16) Smem {
   float dy[kChunk][kChannels];
   float b[kChunk * N];
   float c[kChunk * N];
-  float hist[kChunk][V][kThreads];      // the state before each step
-  float bc[kChunk][kWarps][2 * N];      // each warp's dB, dC sums
+  float hist[kChunk][V][kThreads];   // the state before each step
+  float ex[kChunk][V][kThreads];     // e_t = expf(dt_t A), the forward's
+  // the block's dB, dC sums, by the chunk's parity (warp 0's sums, then
+  // warp 1's added), which the cluster reads; warp 1's
+  float bcb[2][kChunk][2 * N];
+  float bcw[kChunk][2 * N];
 };
 
+// issues the copies of a chunk's operands into shared memory (one group)
 template <int N, int W>
-__device__ __forceinline__ void stage_chunk(Smem<N>& sm, const float* xi,
+__device__ __forceinline__ void stage_issue(Smem<N>& sm, const float* xi,
                                             const float* dt, const float* dy,
                                             const float* bm, const float* cm,
                                             size_t row0, int t0, int len,
@@ -159,11 +191,181 @@ __device__ __forceinline__ void stage_chunk(Smem<N>& sm, const float* xi,
     copy_async<W>(&sm.b[i], bsrc + i);
     copy_async<W>(&sm.c[i], csrc + i);
   }
-  commit_and_wait_all();
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// what a thread knows of its place
+struct Where {
+  int tid, lane, warp, ch, sub, n0, d, rank, cluster_id;
+  bool on;
+  size_t row0, bsn;
+  int di;
+};
+
+// a chunk: steps [t0, t0 + len); its sums in the buffers of parity buf
+struct Span {
+  int t0, len, buf;
+};
+
+// dB and dC of chunk sp: this block's share of (step, m), summed over the
+// cluster's blocks (read from their shared memory); one partial a cluster
+template <int N>
+__device__ __forceinline__ void cluster_bc(Smem<N>& sm, const Where& at,
+                                           const Span& sp,
+                                           float* __restrict__ bc_part) {
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int kShare = kChunk * 2 * N / kCluster;
+  for (int e = at.tid; e < kShare; e += kThreads) {
+    const int idx = at.rank * kShare + e;
+    const int tt = idx / (2 * N);
+    const int m = idx - tt * 2 * N;
+    if (tt < sp.len) {
+      float parts[kCluster];
+#pragma unroll
+      for (int rr = 0; rr < kCluster; ++rr)
+        parts[rr] = *cluster.map_shared_rank(&sm.bcb[sp.buf][tt][m], rr);
+      const int which = m / N;
+      bc_part[(static_cast<size_t>(at.cluster_id) * 2 + which) * at.bsn +
+              (at.row0 + sp.t0 + tt) * N + m % N] =
+          tree_sum<0, kCluster>(parts);
+    }
+  }
+}
+
+// One chunk (len == kChunk when kFull): recompute its states and exps from
+// p (the state before it), finish the chunk before it (prev: its dB and dC
+// partials, once the cluster's blocks have summed theirs), walk it back
+// (gc: G_{t+1} e_{t+1}), write dx and ddt, sum the block's dB and dC; and
+// start the copies of the chunk before, and its checkpoint (into ck).
+template <int N, int W, bool kFull>
+__device__ __forceinline__ void chunk(
+    Smem<N>& sm, const Where& at, const Span& sp, const Span& prev,
+    float (&p)[N / kLanes], float (&gc)[N / kLanes],
+    float (&da_acc)[N / kLanes], const float (&av)[N / kLanes],
+    float (&ck)[N / kLanes], int n, int s, const float* __restrict__ xi,
+    const float* __restrict__ dt, const float* __restrict__ dy,
+    const float* __restrict__ bm, const float* __restrict__ cm,
+    const float* __restrict__ ck_row, float* __restrict__ dxi,
+    float* __restrict__ ddt, float* __restrict__ bc_part) {
+  constexpr int V = N / kLanes;
+  const int len = sp.len;
+  // the chunk's states and exps, by the forward's operations (channels
+  // past di compute on what the buffers hold and add nothing below)
+#pragma unroll
+  for (int tt = 0; tt < kChunk; ++tt) {
+    if (kFull || tt < len) {
+      const float h = sm.dt[tt][at.ch];
+      const float x = sm.x[tt][at.ch];
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        sm.hist[tt][q][at.tid] = p[q];
+        const float e = expf(__fmul_rn(h, av[q]));
+        sm.ex[tt][q][at.tid] = e;
+        const float hbx = __fmul_rn(h, __fmul_rn(x, sm.b[tt * N + at.n0 + q]));
+        p[q] = __fadd_rn(__fmul_rn(p[q], e), hbx);
+      }
+    }
+  }
+  // the chunk before: every block's dB and dC sums are in
+  if (prev.buf >= 0) {
+    cluster_wait();
+    cluster_bc(sm, at, prev, bc_part);
+  }
+  float xs[2 * kChunk];  // [quantity][step]: dx, ddt of the lane's values
+  constexpr int kKept = scattered(2 * V, kLanes, 32);
+  float yk[kChunk][kKept];  // each step's dB, dC sums over the warp
+  int yoff = 0;
+#pragma unroll
+  for (int tt = kChunk - 1; tt >= 0; --tt) {
+    if (kFull || tt < len) {
+      const float h = sm.dt[tt][at.ch];
+      const float x = sm.x[tt][at.ch];
+      const float gy = sm.dy[tt][at.ch];
+      float sx = 0.f, sdt = 0.f, vals[2 * V];
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const float bq = sm.b[tt * N + at.n0 + q];
+        const float cq = sm.c[tt * N + at.n0 + q];
+        const float e = sm.ex[tt][q][at.tid];
+        const float pe = __fmul_rn(sm.hist[tt][q][at.tid], e);
+        const float xb = __fmul_rn(x, bq);
+        const float st = __fadd_rn(pe, __fmul_rn(h, xb));  // s_t
+        const float g = fmaf(gy, cq, gc[q]);                // G_t
+        const float gh = g * h;
+        const float gpe = g * pe;
+        sx = fmaf(gh, bq, sx);
+        sdt = fmaf(gpe, av[q], sdt);
+        sdt = fmaf(g, xb, sdt);
+        da_acc[q] = fmaf(gpe, h, da_acc[q]);
+        vals[q] = at.on ? gh * x : 0.f;       // dB
+        vals[V + q] = at.on ? st * gy : 0.f;  // dC
+        gc[q] = g * e;
+      }
+      xs[tt] = sx;
+      xs[kChunk + tt] = sdt;
+      // dB and dC over the warp's channels
+      int off = 0;
+      scatter_sum<2 * V, kLanes, 32>(vals, at.lane, off);
+      yoff = off;
+#pragma unroll
+      for (int q = 0; q < kKept; ++q) yk[tt][q] = vals[q];
+    } else {
+      xs[tt] = 0.f;
+      xs[kChunk + tt] = 0.f;
+    }
+  }
+  {
+    float* mine = at.warp == 0 ? &sm.bcb[sp.buf][0][0] : &sm.bcw[0][0];
+#pragma unroll
+    for (int tt = 0; tt < kChunk; ++tt)
+      if (kFull || tt < len) {
+#pragma unroll
+        for (int q = 0; q < kKept; ++q) {
+          const int idx = yoff + q;  // (quantity, value of the lane's range)
+          mine[tt * 2 * N + idx / V * N + at.n0 + idx % V] = yk[tt][q];
+        }
+      }
+  }
+  __syncthreads();  // both warps' sums are in, the stage is read
+  if (n > 0) {
+    // the chunk before: its operands and checkpoint, in flight meanwhile
+    const int t0 = (n - 1) * kChunk;
+    stage_issue<N, W>(sm, xi, dt, dy, bm, cm, at.row0, t0, kChunk,
+                      blockIdx.x * kChannels, at.di);
+#pragma unroll
+    for (int q = 0; q < V; ++q) ck[q] = at.on ? ck_row[(n - 1) * N + q] : 0.f;
+  }
+  // dx and ddt over the channel's lanes, all the chunk's steps at once
+  {
+    int off = 0;
+    scatter_sum<2 * kChunk, 1, kLanes>(xs, at.lane, off);
+    constexpr int kKeep = scattered(2 * kChunk, 1, kLanes);
+#pragma unroll
+    for (int q = 0; q < kKeep; ++q) {
+      const int f = off + q;
+      const int which = f / kChunk;
+      const int tt = f - which * kChunk;
+      if (at.on && (kFull || tt < len)) {
+        const size_t o = (at.row0 + sp.t0 + tt) * at.di + at.d;
+        (which == 0 ? dxi : ddt)[o] = xs[q];
+      }
+    }
+  }
+  // the block's dB and dC: warp 0's sums plus warp 1's
+  static_assert(kWarps == 2, "two warps a block");
+  for (int e = at.tid; e < kChunk * 2 * N; e += kThreads) {
+    const int tt = e / (2 * N);
+    const int m = e - tt * 2 * N;
+    if (kFull || tt < len) sm.bcb[sp.buf][tt][m] += sm.bcw[tt][m];
+  }
+  cluster_arrive();  // this block's sums are in, and it has read the last
 }
 
 template <int N, int W>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 6)
     selective_scan_bwd_kernel(const float* __restrict__ xi,
                               const float* __restrict__ dt,
                               const float* __restrict__ bm,
@@ -179,112 +381,70 @@ __global__ void __launch_bounds__(kThreads)
                               float* __restrict__ dstate0, int s, int di) {
   constexpr int V = N / kLanes;  // state values a lane
   static_assert(V * kLanes == N, "N is 4, 8 or 16");
-  __shared__ Smem<N> sm;
+  static_assert(kChunk * 2 * N % kCluster == 0, "a share a block");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<N>& sm = *reinterpret_cast<Smem<N>*>(smem_raw);
+  Where at;
   const int b = blockIdx.y;
   const int batch = gridDim.y;
   const int d0 = blockIdx.x * kChannels;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int ch = tid / kLanes;
-  const int sub = tid % kLanes;
-  const int d = d0 + ch;
-  const int n0 = sub * V;
-  const bool on = d < di;
-  const size_t row0 = static_cast<size_t>(b) * s;
-  const size_t bsn = static_cast<size_t>(batch) * s * N;
+  at.tid = threadIdx.x;
+  at.lane = at.tid % 32;
+  at.warp = at.tid / 32;
+  at.ch = at.tid / kLanes;
+  at.sub = at.tid % kLanes;
+  at.d = d0 + at.ch;
+  at.n0 = at.sub * V;
+  at.on = at.d < di;
+  at.di = di;
+  at.rank = static_cast<int>(cg::this_cluster().block_rank());
+  at.cluster_id = blockIdx.x / kCluster;
+  at.row0 = static_cast<size_t>(b) * s;
+  at.bsn = static_cast<size_t>(batch) * s * N;
   const int n_ck = s / kChunk + 1;
-  const size_t lane_off = (static_cast<size_t>(b) * di + d) * N + n0;
+  const size_t lane_off = (static_cast<size_t>(b) * di + at.d) * N + at.n0;
   float av[V], gc[V], da_acc[V];
   // gc: the gradient of the state after the step being processed, carried
   // back through its decay: G_{t+1} e_{t+1} (dstate_T at the last step)
 #pragma unroll
   for (int q = 0; q < V; ++q) {
-    av[q] = on ? a[static_cast<size_t>(d) * N + n0 + q] : 0.f;
-    gc[q] = on ? dstate[lane_off + q] : 0.f;
+    av[q] = at.on ? a[static_cast<size_t>(at.d) * N + at.n0 + q] : 0.f;
+    gc[q] = at.on ? dstate[lane_off + q] : 0.f;
     da_acc[q] = 0.f;
   }
   const float* ck_row =
-      ckpt + (static_cast<size_t>(b) * di + d) * n_ck * N + n0;
+      ckpt + (static_cast<size_t>(b) * di + at.d) * n_ck * N + at.n0;
+  // the last chunk's operands and checkpoint
+  const int n_last = (s + kChunk - 1) / kChunk - 1;
+  float ck[V];
+  stage_issue<N, W>(sm, xi, dt, dy, bm, cm, at.row0, n_last * kChunk,
+                    s - n_last * kChunk, d0, di);
+#pragma unroll
+  for (int q = 0; q < V; ++q) ck[q] = at.on ? ck_row[n_last * N + q] : 0.f;
+  Span prev = {0, 0, -1};
+  int parity = 0;
 
-  for (int n = (s + kChunk - 1) / kChunk - 1; n >= 0; --n) {
-    const int t0 = n * kChunk;
-    const int len = min(kChunk, s - t0);
-    __syncthreads();  // nobody reads the last chunk's stage or sums
-    stage_chunk<N, W>(sm, xi, dt, dy, bm, cm, row0, t0, len, d0, di);
+  for (int n = n_last; n >= 0; --n) {
+    const Span sp = {n * kChunk, min(kChunk, s - n * kChunk), parity};
+    stage_wait();
+    __syncthreads();  // the chunk, staged by all, is in
     float p[V];
 #pragma unroll
-    for (int q = 0; q < V; ++q) p[q] = on ? ck_row[n * N + q] : 0.f;
-    __syncthreads();  // the chunk, staged by all, is in
-    // the chunk's states, by the forward's operations (channels past di
-    // compute on what the buffers hold and add nothing below)
-    for (int tt = 0; tt < len; ++tt) {
-      const float h = sm.dt[tt][ch];
-      const float x = sm.x[tt][ch];
-#pragma unroll
-      for (int q = 0; q < V; ++q) {
-        sm.hist[tt][q][tid] = p[q];
-        const float e = expf(__fmul_rn(h, av[q]));
-        const float hbx = __fmul_rn(h, __fmul_rn(x, sm.b[tt * N + n0 + q]));
-        p[q] = __fadd_rn(__fmul_rn(p[q], e), hbx);
-      }
-    }
-    for (int tt = len - 1; tt >= 0; --tt) {
-      const float h = sm.dt[tt][ch];
-      const float x = sm.x[tt][ch];
-      const float gy = sm.dy[tt][ch];
-      float tx[V], tdt[V], vals[2 * V];
-#pragma unroll
-      for (int q = 0; q < V; ++q) {
-        const float bq = sm.b[tt * N + n0 + q];
-        const float cq = sm.c[tt * N + n0 + q];
-        const float e = expf(__fmul_rn(h, av[q]));
-        const float pe = __fmul_rn(sm.hist[tt][q][tid], e);
-        const float xb = __fmul_rn(x, bq);
-        const float st = __fadd_rn(pe, __fmul_rn(h, xb));  // s_t
-        const float g = __fadd_rn(__fmul_rn(gy, cq), gc[q]);  // G_t
-        const float gh = __fmul_rn(g, h);
-        const float gpe = __fmul_rn(g, pe);
-        tx[q] = __fmul_rn(gh, bq);
-        tdt[q] = __fadd_rn(__fmul_rn(gpe, av[q]), __fmul_rn(g, xb));
-        da_acc[q] = __fadd_rn(da_acc[q], __fmul_rn(gpe, h));
-        vals[q] = on ? __fmul_rn(gh, x) : 0.f;       // dB
-        vals[V + q] = on ? __fmul_rn(st, gy) : 0.f;  // dC
-        gc[q] = __fmul_rn(g, e);
-      }
-      float sx = tree_sum<0, V>(tx), sdt = tree_sum<0, V>(tdt);
-#pragma unroll
-      for (int m = 1; m < kLanes; m <<= 1) {
-        sx = __fadd_rn(sx, __shfl_xor_sync(0xffffffffu, sx, m));
-        sdt = __fadd_rn(sdt, __shfl_xor_sync(0xffffffffu, sdt, m));
-      }
-      if (on && sub == 0) {
-        const size_t o = (row0 + t0 + tt) * di + d;
-        dxi[o] = sx;
-        ddt[o] = sdt;
-      }
-      // dB and dC over the warp's channels
-      int off = 0;
-      scatter_sum<2 * V, kLanes>(vals, lane, off);
-      constexpr int kKept = scattered(2 * V, kLanes);
-#pragma unroll
-      for (int q = 0; q < kKept; ++q) {
-        const int idx = off + q;  // (quantity, value of this lane's range)
-        sm.bc[tt][warp][idx / V * N + n0 + idx % V] = vals[q];
-      }
-    }
-    __syncthreads();  // both warps' sums are in
-    // the block's partial: its two warps' sums
-    for (int e = tid; e < len * 2 * N; e += kThreads) {
-      const int tt = e / (2 * N);
-      const int m = e - tt * 2 * N;
-      const int which = m / N;
-      const float sum = __fadd_rn(sm.bc[tt][0][m], sm.bc[tt][1][m]);
-      bc_part[(static_cast<size_t>(blockIdx.x) * 2 + which) * bsn +
-              (row0 + t0 + tt) * N + m % N] = sum;
-    }
+    for (int q = 0; q < V; ++q) p[q] = ck[q];
+    if (sp.len == kChunk)
+      chunk<N, W, true>(sm, at, sp, prev, p, gc, da_acc, av, ck, n, s, xi,
+                        dt, dy, bm, cm, ck_row, dxi, ddt, bc_part);
+    else
+      chunk<N, W, false>(sm, at, sp, prev, p, gc, da_acc, av, ck, n, s, xi,
+                         dt, dy, bm, cm, ck_row, dxi, ddt, bc_part);
+    prev = sp;
+    parity ^= 1;
   }
-  if (on) {
+  cluster_wait();
+  cluster_bc(sm, at, prev, bc_part);
+  cluster_arrive();
+  cluster_wait();  // no block leaves while another reads its shared memory
+  if (at.on) {
 #pragma unroll
     for (int q = 0; q < V; ++q) {
       dstate0[lane_off + q] = gc[q];
@@ -293,7 +453,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// dB and dC: the blocks' partials in tree_sum's order (a stack of the
+// dB and dC: the clusters' partials in tree_sum's order (a stack of the
 // pairwise tree's partial sums, the odd ones out going up as they are);
 // dA: the batch rows' partials in order
 __global__ void selective_scan_bwd_finish(const float* __restrict__ bc_part,
@@ -301,7 +461,7 @@ __global__ void selective_scan_bwd_finish(const float* __restrict__ bc_part,
                                           float* __restrict__ dbm,
                                           float* __restrict__ dcm,
                                           float* __restrict__ da, size_t bsn,
-                                          int blocks, int batch, size_t dn) {
+                                          int clusters, int batch, size_t dn) {
   const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e < 2 * bsn) {
     const int which = e >= bsn;
@@ -309,31 +469,62 @@ __global__ void selective_scan_bwd_finish(const float* __restrict__ bc_part,
     float sums[32];
     int level[32];
     int top = 0;
-    for (int blk = 0; blk < blocks; ++blk) {
-      float x = bc_part[(static_cast<size_t>(blk) * 2 + which) * bsn + i];
+    for (int cl = 0; cl < clusters; ++cl) {
+      float x = bc_part[(static_cast<size_t>(cl) * 2 + which) * bsn + i];
       int l = 0;
       while (top > 0 && level[top - 1] == l) {
-        x = __fadd_rn(sums[--top], x);
+        x = sums[--top] + x;
         ++l;
       }
       sums[top] = x;
       level[top++] = l;
     }
     float acc = sums[--top];
-    while (top > 0) acc = __fadd_rn(sums[--top], acc);
+    while (top > 0) acc = sums[--top] + acc;
     (which ? dcm : dbm)[i] = acc;
   }
   if (e < dn) {
     float acc = 0.f;
-    for (int b = 0; b < batch; ++b) acc = __fadd_rn(acc, da_part[b * dn + e]);
+    for (int b = 0; b < batch; ++b) acc += da_part[b * dn + e];
     da[e] = acc;
   }
 }
 
+int clusters_of(int di) {
+  const int blocks = (di + kChannels - 1) / kChannels;
+  return (blocks + kCluster - 1) / kCluster;
+}
+
 size_t workspace_floats(int batch, int s, int di, int n) {
-  const size_t blocks = (di + kChannels - 1) / kChannels;
-  return blocks * 2 * static_cast<size_t>(batch) * s * n +
+  return static_cast<size_t>(clusters_of(di)) * 2 * batch * s * n +
          static_cast<size_t>(batch) * di * n;
+}
+
+template <int N, int W>
+cudaError_t launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                          int batch, int di, cudaStream_t stream) {
+  auto kernel = &selective_scan_bwd_kernel<N, W>;
+  const int smem = static_cast<int>(sizeof(Smem<N>));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters_of(di) * kCluster),
+                     static_cast<unsigned>(batch));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
 }
 
 template <int N>
@@ -342,26 +533,34 @@ int launch(const float* xi, const float* dt, const float* bm, const float* cm,
            const float* dstate, float* dxi, float* ddt, float* dbm,
            float* dcm, float* da, float* dstate0, float* work, int batch,
            int s, int di, cudaStream_t stream) {
-  const int blocks = (di + kChannels - 1) / kChannels;
+  const int clusters = clusters_of(di);
   const size_t bsn = static_cast<size_t>(batch) * s * N;
   float* bc_part = work;
-  float* da_part = bc_part + static_cast<size_t>(blocks) * 2 * bsn;
-  const dim3 grid(blocks, batch);
+  float* da_part = bc_part + static_cast<size_t>(clusters) * 2 * bsn;
   const bool aligned = di % 4 == 0 &&
                        ((reinterpret_cast<uintptr_t>(xi) |
                          reinterpret_cast<uintptr_t>(dt) |
                          reinterpret_cast<uintptr_t>(dy) |
                          reinterpret_cast<uintptr_t>(bm) |
                          reinterpret_cast<uintptr_t>(cm)) & 15) == 0;
-  if (aligned)
-    selective_scan_bwd_kernel<N, 4><<<grid, kThreads, 0, stream>>>(
-        xi, dt, bm, cm, a, ckpt, dy, dstate, dxi, ddt, bc_part, da_part,
-        dstate0, s, di);
-  else
-    selective_scan_bwd_kernel<N, 1><<<grid, kThreads, 0, stream>>>(
-        xi, dt, bm, cm, a, ckpt, dy, dstate, dxi, ddt, bc_part, da_part,
-        dstate0, s, di);
-  cudaError_t err = cudaGetLastError();
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err;
+  if (aligned) {
+    err = launch_config<N, 4>(cfg, attr, batch, di, stream);
+    if (err == cudaSuccess)
+      err = cudaLaunchKernelEx(&cfg, selective_scan_bwd_kernel<N, 4>, xi, dt,
+                               bm, cm, a, ckpt, dy, dstate, dxi, ddt, bc_part,
+                               da_part, dstate0, s, di);
+  } else {
+    err = launch_config<N, 1>(cfg, attr, batch, di, stream);
+    if (err == cudaSuccess)
+      err = cudaLaunchKernelEx(&cfg, selective_scan_bwd_kernel<N, 1>, xi, dt,
+                               bm, cm, a, ckpt, dy, dstate, dxi, ddt, bc_part,
+                               da_part, dstate0, s, di);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t dn = static_cast<size_t>(di) * N;
   const size_t n = 2 * bsn > dn ? 2 * bsn : dn;
@@ -369,24 +568,70 @@ int launch(const float* xi, const float* dt, const float* bm, const float* cm,
   selective_scan_bwd_finish<<<static_cast<unsigned>((n + kFinish - 1) /
                                                     kFinish),
                               kFinish, 0, stream>>>(
-      bc_part, da_part, dbm, dcm, da, bsn, blocks, batch, dn);
+      bc_part, da_part, dbm, dcm, da, bsn, clusters, batch, dn);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int N>
+int plan_of(int batch, int di, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = launch_config<N, 4>(cfg, attr, batch, di, nullptr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, selective_scan_bwd_kernel<N, 4>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0, clusters = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, selective_scan_bwd_kernel<N, 4>, kThreads, sizeof(Smem<N>));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveClusters(
+      &clusters, selective_scan_bwd_kernel<N, 4>, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vals[] = {N / kLanes, kChunk, kThreads, kCluster,
+                      static_cast<int>(sizeof(Smem<N>)), fa.numRegs,
+                      static_cast<int>(fa.localSizeBytes), blocks, clusters,
+                      clusters_of(di) * kCluster * batch};
+  for (int x = 0; x < 10; ++x) out[x] = vals[x];
+  return 0;
 }
 
 }  // namespace
 
-// Bytes of the scratch `work` that selective_scan_bwd_launch needs.
+// Bytes of the scratch `work` that selective_scan_bwd_launch needs: dB and
+// dC's partials, one a cluster of 128 channels, and dA's per-batch ones.
 extern "C" long long selective_scan_bwd_workspace(int batch, int s, int di,
                                                   int n) {
   return 4LL * static_cast<long long>(workspace_floats(batch, s, di, n));
+}
+
+// The launch selective_scan_bwd_launch makes at this shape, into out[10]:
+// values a lane, steps a chunk, threads a block, blocks a cluster, shared
+// bytes a block, registers a thread, local (spill) bytes a thread, blocks
+// resident an SM, clusters resident on the card, blocks launched.  Returns
+// a cudaError_t (0: filled).
+extern "C" int selective_scan_bwd_plan(int batch, int s, int di, int n,
+                                       int* out) {
+  (void)s;
+  switch (n) {
+    case 4:
+      return plan_of<4>(batch, di, out);
+    case 8:
+      return plan_of<8>(batch, di, out);
+    case 16:
+      return plan_of<16>(batch, di, out);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // xi, dt, dy, dxi, ddt [batch, s, di]; bm, cm, dbm, dcm [batch, s, n]; a, da
 // [di, n]; ckpt [batch, di, s / 16 + 1, n] as selective_scan_launch wrote
 // it; dstate, dstate0 [batch, di, n]; work of selective_scan_bwd_workspace
 // bytes; all float32, contiguous, on the device of `stream`.  n is 4, 8 or
-// 16.  Two launches (the scan, then the sums over blocks and batch rows).
-// Returns the cudaError_t of the launches (0: launched).
+// 16.  Two launches (the scan with its cluster sums, then the sums over
+// clusters and batch rows).  Returns the cudaError_t of the launches (0:
+// launched).
 extern "C" int selective_scan_bwd_launch(
     const void* xi, const void* dt, const void* bm, const void* cm,
     const void* a, const void* ckpt, const void* dy, const void* dstate,

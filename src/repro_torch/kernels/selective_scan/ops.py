@@ -33,6 +33,7 @@ from .ref import selective_scan_bwd_ref, selective_scan_ref
 
 __all__ = ["selective_scan", "selective_scan_cuda", "selective_scan_ref",
            "selective_scan_bwd_cuda", "selective_scan_bwd_ref",
+           "selective_scan_bwd_plan",
            "SelectiveScan", "STATE_SIZES", "CKPT_EVERY"]
 
 #: state sizes N the kernel is built for
@@ -66,7 +67,30 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.selective_scan_bwd_workspace.restype = ctypes.c_longlong
     lib.selective_scan_bwd_error_string.argtypes = [ctypes.c_int]
     lib.selective_scan_bwd_error_string.restype = ctypes.c_char_p
+    lib.selective_scan_bwd_plan.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    lib.selective_scan_bwd_plan.restype = ctypes.c_int
     return lib
+
+
+#: what ``selective_scan_bwd_plan`` reports of the backward kernel's launch
+BWD_PLAN_KEYS = ("values_a_lane", "steps_a_sub_chunk", "threads_a_block",
+                 "blocks_a_cluster", "shared_bytes_a_block",
+                 "registers_a_thread", "local_bytes_a_thread",
+                 "blocks_an_sm", "clusters_resident", "blocks_launched")
+
+
+def selective_scan_bwd_plan(b, s, di, n) -> dict:
+    """The backward kernel's launch at this shape, as the card reports it
+    (``BWD_PLAN_KEYS``: residency from the CUDA occupancy calculator).
+    Needs the card; for measurement, never on the main path."""
+    lib = _bwd_lib()
+    out = (ctypes.c_int * len(BWD_PLAN_KEYS))()
+    err = lib.selective_scan_bwd_plan(b, s, di, n, ctypes.addressof(out))
+    if err != 0:
+        msg = lib.selective_scan_bwd_error_string(err).decode()
+        raise RuntimeError(f"selective_scan_bwd_plan: {msg}")
+    return dict(zip(BWD_PLAN_KEYS, out))
 
 
 def checkpoint_count(s: int) -> int:

@@ -32,7 +32,7 @@ from ..dispatch import (KernelOp, dispatch, record_launch, register_kernel,
 from .ref import wkv6_bwd_ref, wkv6_ref
 
 __all__ = ["wkv6", "wkv6_cuda", "wkv6_ref", "wkv6_bwd_cuda", "wkv6_bwd_ref",
-           "WKV6", "HEAD_SIZES", "CKPT_EVERY"]
+           "wkv6_bwd_plan", "WKV6", "HEAD_SIZES", "CKPT_EVERY"]
 
 #: head sizes the kernel is built for: rwkv6-1.6b's and its smoke config's
 HEAD_SIZES = (16, 64)
@@ -63,7 +63,29 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.wkv6_bwd_workspace.restype = ctypes.c_longlong
     lib.wkv6_bwd_error_string.argtypes = [ctypes.c_int]
     lib.wkv6_bwd_error_string.restype = ctypes.c_char_p
+    lib.wkv6_bwd_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.wkv6_bwd_plan.restype = ctypes.c_int
     return lib
+
+
+#: what ``wkv6_bwd_plan`` reports of the backward kernel's launch
+BWD_PLAN_KEYS = ("values_a_lane", "rows_a_thread", "steps_a_sub_chunk",
+                 "threads_a_block", "blocks_a_cluster", "shared_bytes_a_block",
+                 "registers_a_thread", "local_bytes_a_thread",
+                 "blocks_an_sm", "clusters_resident", "blocks_launched")
+
+
+def wkv6_bwd_plan(b, s, h, hd) -> dict:
+    """The backward kernel's launch at this shape, as the card reports it
+    (``BWD_PLAN_KEYS``: residency from the CUDA occupancy calculator).
+    Needs the card; for measurement, never on the main path."""
+    lib = _bwd_lib()
+    out = (ctypes.c_int * len(BWD_PLAN_KEYS))()
+    err = lib.wkv6_bwd_plan(b, s, h, hd, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"wkv6_bwd_plan: "
+                           f"{lib.wkv6_bwd_error_string(err).decode()}")
+    return dict(zip(BWD_PLAN_KEYS, out))
 
 
 def checkpoint_count(s: int) -> int:

@@ -13,10 +13,14 @@ the flash kernel, which is not bit-equal to its plain version).
 The backward kernels (``csrc/selective_scan_bwd.cu``, ``csrc/wkv6_bwd.cu``)
 against autograd over the plain forwards (``*_bwd_ref``): each of the six
 gradients within 1e-4 of its largest |value| (float32; they sum in other
-orders over up to 64 terms and 70 steps), two launches bit-equal, and the
-forward's output, final state and checkpoints the same bits with the
-checkpoints on and off, at ragged shapes (S not a multiple of 16, hd 16,
-N 4 and 8, channels past a block's 16) and unaligned operands; the
+orders over up to 8,192 terms and 4,096 steps), two launches bit-equal,
+and the forward's output, final state and checkpoints the same bits with the
+checkpoints on and off, at ragged shapes (S not a multiple of 16, and
+below 16, hd 16: one block a head, N 4 and 8, channels past a block's
+16, Di 200: a cluster of 8 blocks padded past Di, several clusters),
+with more than 66 heads (the many-heads plan), with unaligned operands,
+and at rwkv6-1.6b's training shape, B 4 x 4,096, every cluster resident
+at once; the
 autograd functions reaching them through the wrappers; and the two smoke
 configs' whole-model gradient with the kernels against ``backend="ref"``
 (float32, capacity factor 16), within 1e-4 of each leaf's largest value.
@@ -227,13 +231,40 @@ def _bwd_operands(dev, name, shape, unaligned):
     ("wkv6", (2, 37, 3, 16), False), ("wkv6", (2, 32, 2, 16), False),
     ("wkv6", (1, 70, 2, 64), False), ("wkv6", (3, 21, 5, 64), True),
     ("wkv6", (2, 1, 2, 16), False),
+    # the design's edges: hd 16 (one block a head) and 64 with S below 16;
+    # more than 66 heads (the many-heads plan: 8 values a lane, sub-chunks
+    # of 8 steps) with S ragged, a multiple of 16, and unaligned
+    ("wkv6", (2, 9, 3, 16), False), ("wkv6", (1, 11, 2, 64), False),
+    ("wkv6", (2, 37, 40, 64), False), ("wkv6", (2, 48, 40, 64), False),
+    ("wkv6", (3, 21, 32, 64), True),
     ("selective_scan", (2, 37, 200, 4), False),
     ("selective_scan", (1, 45, 130, 8), False),
     ("selective_scan", (2, 32, 64, 16), False),
     ("selective_scan", (3, 19, 200, 16), True),
-    ("selective_scan", (1, 1, 8200, 16), False)])
+    ("selective_scan", (1, 1, 8200, 16), False),
+    # Di 200: 13 blocks of 16, a cluster of 8 padded with 3 past Di; S
+    # below 16; more than one cluster's partials
+    ("selective_scan", (2, 37, 200, 16), False),
+    ("selective_scan", (2, 9, 200, 8), False),
+    ("selective_scan", (1, 40, 1000, 16), True)])
 def test_backward_kernel_matches_autograd_over_plain_forward(
         cuda_device, name, shape, unaligned):
+    _check_backward(cuda_device, name, shape, unaligned)
+
+
+@pytest.mark.cuda
+def test_wkv6_backward_kernel_at_rwkv6_training_shape(cuda_device):
+    """An rwkv6-1.6b layer at its training shape, B 4 x 4,096 (32 heads of
+    64): the many-heads plan, every cluster resident at once."""
+    from repro_torch.kernels.wkv6.ops import wkv6_bwd_plan
+    plan = wkv6_bwd_plan(4, 4096, 32, 64)
+    assert plan["blocks_a_cluster"] > 1
+    assert plan["clusters_resident"] * plan["blocks_a_cluster"] >= \
+        plan["blocks_launched"]
+    _check_backward(cuda_device, "wkv6", (4, 4096, 32, 64), False)
+
+
+def _check_backward(cuda_device, name, shape, unaligned):
     fwd, ops, state, dout, dstate = _bwd_operands(cuda_device, name, shape,
                                                   unaligned)
     bwd, plain = ((wkv6_bwd_cuda, wkv6_bwd_ref) if name == "wkv6" else

@@ -4,21 +4,30 @@ autograd functions.
 ``csrc/wkv6_bwd.cu`` and ``csrc/selective_scan_bwd.cu`` cannot run here,
 so this file transcribes each kernel's algorithm into plain PyTorch, step
 for step: the forward's state checkpoints every 16 steps, a chunk's states
-recomputed from its checkpoint by the forward's own operations, the
-adjoint recurrences walked from the last step, every product in the
-kernel's order of operands, and every sum in the kernel's order, which is
-``tree_sum``'s (a lane's values, then its neighbours', then warps and
-blocks in the same pairwise tree; a per-batch partial summed over t from
-the last step and then over the batch rows in order).  Each transcription
-is held against ``jax.vjp`` of the reference's own scan: ``lax.scan``
-inside ``repro.models.rwkv6._tmix_full`` (its projections replaced by the
-given r, k, v, w) and ``lax.scan`` over ``repro.models.mamba._ssm_step``,
-on inputs from a numpy seed with a nonzero initial state and a nonzero
-gradient of the final state, within float32 rounding: 1e-5 of each
-gradient's largest |value| (the two sum in other orders over up to 64
-terms and 40 steps).  This checks the derivation the kernels implement
-before they reach the card, where ``tests/test_torch_recurrent_cuda.py``
-holds the kernels to autograd over the plain forward.
+recomputed from its checkpoint by the forward's own operations (for
+``wkv6_bwd`` a sub-chunk at a time from its first state; for
+``selective_scan_bwd`` each step's exp kept from the recompute and reused),
+the adjoint recurrences walked from the last step, and every sum in the
+kernel's order: a lane's values in order (an FMA chain's order) and then
+the lanes in the pairwise tree (dk, dr, dw, a_t; dx, ddt); dv over a
+thread's rows in order, the block's row groups in the pairwise tree, plus
+do_t times the block's part of b_t, then the cluster's blocks in the
+pairwise tree; dB and dC over a cluster's 128 channels in the pairwise
+tree (past Di, zeros), then the clusters in ``tree_sum``'s order; a
+per-batch partial summed over t from the last step and then over the
+batch rows in order.  (The kernels fuse products into FMAs; this rounds
+each product.)  Each transcription is held against ``jax.vjp`` of the
+reference's own scan: ``lax.scan`` inside ``repro.models.rwkv6._tmix_full``
+(its projections replaced by the given r, k, v, w) and ``lax.scan`` over
+``repro.models.mamba._ssm_step``, on inputs from a numpy seed with a
+nonzero initial state and a nonzero gradient of the final state, within
+float32 rounding: 1e-5 of each gradient's largest |value| (the two sum in
+other orders over up to 200 terms and 48 steps), at every plan of
+``wkv6_bwd`` and at the kernels' edges (S below 16, ragged, a multiple of
+16; hd 16; Di not a multiple of a cluster's channels).  This checks the
+derivation the kernels implement before they reach the card, where
+``tests/test_torch_recurrent_cuda.py`` holds the kernels to autograd over
+the plain forward.
 
 The autograd functions (``WKV6``, ``SelectiveScan``) on CPU tensors run
 the plain versions: their gradients must be autograd's over the plain
@@ -76,10 +85,48 @@ def _t(a):
 
 # -- the kernels' algorithms, transcribed -------------------------------------
 
-def wkv6_bwd_transcribed(r, k, v, w, u, state0, do, dstate):
+#: the backward kernel's plans (``csrc/wkv6_bwd.cu``): values a lane of a
+#: row, rows a thread, rows a block, steps a sub-chunk
+WKV6_PLANS = {"many": (8, 2, 32, 4), "few": (8, 1, 16, 8),
+              "head16": (8, 1, 16, 4)}
+#: selective_scan_bwd's lanes a channel and channels a cluster
+SSM_LANES, SSM_CLUSTER = 4, 128
+
+
+def wkv6_plan(b, h, hd):
+    """The plan the kernel launches: many heads once B H hd / 16 blocks
+    pass two an SM of an H100's 132."""
+    if hd == 16:
+        return "head16"
+    return "many" if b * h * 4 > 2 * 132 else "few"
+
+
+def _seq(x, dim):
+    """Sum over ``dim`` in order, one value after another (an FMA chain's
+    order)."""
+    acc = x.select(dim, 0)
+    for q in range(1, x.shape[dim]):
+        acc = acc + x.select(dim, q)
+    return acc
+
+
+def _lanes(x, dim, vals):
+    """A lane's ``vals`` values in order, then the lanes in the pairwise
+    tree: the kernels' sum over a row's (or channel's) values."""
+    n = x.shape[dim]
+    parts = x.unflatten(dim, (n // vals, vals))
+    return tree_sum(_seq(parts, dim + 1 if dim >= 0 else dim), dim)
+
+
+def wkv6_bwd_transcribed(r, k, v, w, u, state0, do, dstate, plan=None):
     """``csrc/wkv6_bwd.cu``'s algorithm; operands as ``wkv6_bwd_cuda``
-    takes them, the initial state in place of the checkpoints."""
+    takes them, the initial state in place of the checkpoints.  ``plan``
+    (default: the kernel's choice) sets the orders of the sums over j
+    (``vals``) and over the rows (a thread's ``rpt`` rows first, the
+    block's ``rows``, then the cluster's blocks) and the sub-chunks."""
     b, s, h, hd = r.shape
+    vals, rpt, rows, sub = WKV6_PLANS[plan or wkv6_plan(b, h, hd)]
+    rows = min(rows, hd)
     kv = lambda t: k[:, t, :, :, None] * v[:, t, :, None, :]
     # the forward kernel's checkpoints: the state before steps 0, 16, ...
     ckpt, p = [], state0.clone()
@@ -92,27 +139,53 @@ def wkv6_bwd_transcribed(r, k, v, w, u, state0, do, dstate):
     du_part = torch.zeros((b, h, hd))
     for n in reversed(range(len(ckpt))):
         t0, t1 = n * CHUNK, min(s, (n + 1) * CHUNK)
-        hist, p = {}, ckpt[n]
-        for t in range(t0, t1):       # the chunk's states, recomputed
-            hist[t] = p
+        # the chunk's states: the first of each sub-chunk kept, each
+        # sub-chunk's recomputed from it
+        first, p = {}, ckpt[n]
+        for t in range(t0, t1):
+            if (t - t0) % sub == 0:
+                first[t] = p
             p = p * w[:, t, :, :, None] + kv(t)
-        a = tree_sum(v[:, t0:t1] * do[:, t0:t1], -1)          # v_t . do_t
-        bb = tree_sum(u * r[:, t0:t1] * k[:, t0:t1], -1)   # (u r) k
-        for t in reversed(range(t0, t1)):
-            at, bt = a[:, t - t0, :, None], bb[:, t - t0, :, None]
-            dv[:, t] = tree_sum(k[:, t, :, :, None] * g, 2) + do[:, t] * bt
-            dk[:, t] = tree_sum(v[:, t, :, None, :] * g, -1) + \
-                u * r[:, t] * at
-            dr[:, t] = tree_sum(do[:, t, :, None, :] * hist[t], -1) + \
-                u * k[:, t] * at
-            dw[:, t] = tree_sum(g * hist[t], -1)
-            du_part = du_part + r[:, t] * k[:, t] * at
-            g = w[:, t, :, :, None] * g + \
-                r[:, t, :, :, None] * do[:, t, :, None, :]
+        a = _lanes(v[:, t0:t1] * do[:, t0:t1], -1, vals)      # v_t . do_t
+        # b_t's part of each block's rows, in row order
+        ur = (u * r[:, t0:t1] * k[:, t0:t1]).unflatten(-1, (hd // rows, rows))
+        bpart = _seq(ur, -1)                                # [B, T, H, blk]
+        for s0 in reversed(range(t0, t1, sub)):
+            hist, p = {}, first[s0]
+            for t in range(s0, min(t1, s0 + sub)):
+                hist[t] = p
+                p = p * w[:, t, :, :, None] + kv(t)
+            for t in reversed(range(s0, min(t1, s0 + sub))):
+                at = a[:, t - t0, :, None]
+                prod = (k[:, t, :, :, None] * g).unflatten(2, (hd // rpt,
+                                                               rpt))
+                rowsum = tree_sum(_seq(prod, 3).unflatten(
+                    2, (hd // rows, rows // rpt)), 3)       # [B, H, blk, j]
+                dv[:, t] = tree_sum(rowsum + do[:, t, :, None, :] *
+                                    bpart[:, t - t0, :, :, None], 2)
+                dk[:, t] = _lanes(v[:, t, :, None, :] * g, -1, vals) + \
+                    u * r[:, t] * at
+                dr[:, t] = _lanes(do[:, t, :, None, :] * hist[t], -1,
+                                  vals) + u * k[:, t] * at
+                dw[:, t] = _lanes(g * hist[t], -1, vals)
+                du_part = du_part + r[:, t] * k[:, t] * at
+                g = w[:, t, :, :, None] * g + \
+                    r[:, t, :, :, None] * do[:, t, :, None, :]
     du = torch.zeros((h, hd))
     for i in range(b):
         du = du + du_part[i]
     return dr, dk, dv, dw, du, g
+
+
+def _channels(x):
+    """The sum over channels (dim 1): a cluster's 128 channels in the
+    pairwise tree (channels past Di add exact zeros), then the clusters in
+    tree_sum's order."""
+    di = x.shape[1]
+    pad = -di % SSM_CLUSTER
+    x = torch.cat([x, x.new_zeros((x.shape[0], pad) + x.shape[2:])], 1)
+    x = x.unflatten(1, (x.shape[1] // SSM_CLUSTER, SSM_CLUSTER))
+    return tree_sum(tree_sum(x, 2), 1)
 
 
 def selective_scan_bwd_transcribed(xi, dt, bm, cm, a, state0, dy, dstate):
@@ -120,6 +193,7 @@ def selective_scan_bwd_transcribed(xi, dt, bm, cm, a, state0, dy, dstate):
     ``selective_scan_bwd_cuda`` takes them, the initial state in place of
     the checkpoints."""
     b, s, di = xi.shape
+    vals = a.shape[-1] // SSM_LANES
 
     def step(p, t):
         h = dt[:, t, :, None]
@@ -136,25 +210,28 @@ def selective_scan_bwd_transcribed(xi, dt, bm, cm, a, state0, dy, dstate):
     da_part = torch.zeros((b,) + a.shape)
     for n in reversed(range(len(ckpt))):
         t0, t1 = n * CHUNK, min(s, (n + 1) * CHUNK)
-        hist, p = {}, ckpt[n]
-        for t in range(t0, t1):
+        hist, ex, p = {}, {}, ckpt[n]
+        for t in range(t0, t1):       # the states and the exps, kept
             hist[t] = p
+            ex[t] = torch.exp(dt[:, t, :, None] * a)
             p = step(p, t)
         for t in reversed(range(t0, t1)):
             h, x = dt[:, t, :, None], xi[:, t, :, None]
             bq, cq = bm[:, t, None, :], cm[:, t, None, :]
             gy = dy[:, t, :, None]
-            e = torch.exp(h * a)
+            e = ex[t]
             pe = hist[t] * e
             xb = x * bq
             st = pe + h * xb                           # the state after t
             g = gy * cq + gc                           # G_t
             gh, gpe = g * h, g * pe
-            dxi[:, t] = tree_sum(gh * bq, -1)
-            ddt[:, t] = tree_sum(gpe * a + g * xb, -1)
+            dxi[:, t] = _lanes(gh * bq, -1, vals)
+            # ddt's two terms a value in turn, then the lanes
+            terms = torch.stack([gpe * a, g * xb], -1).flatten(-2)
+            ddt[:, t] = _lanes(terms, -1, 2 * vals)
             da_part = da_part + gpe * h
-            dbm[:, t] = tree_sum(gh * x, 1)            # over the channels
-            dcm[:, t] = tree_sum(st * gy, 1)
+            dbm[:, t] = _channels(gh * x)
+            dcm[:, t] = _channels(st * gy)
             gc = g * e
     da = torch.zeros(a.shape)
     for i in range(b):
@@ -240,6 +317,37 @@ def test_transcribed_backward_matches_jax_grad_of_reference_scan(name,
     if name == "wkv6":
         ops, cots = _wkv_inputs(rng, *shape)
         ref_fn, mine = _jax_wkv, wkv6_bwd_transcribed
+    else:
+        ops, cots = _ssm_inputs(rng, *shape)
+        ref_fn, mine = _jax_ssm, selective_scan_bwd_transcribed
+    _, vjp = jax.vjp(ref_fn, *map(jnp.asarray, ops))
+    want = vjp(tuple(map(jnp.asarray, cots)))
+    got = mine(*map(_t, ops), *map(_t, cots))
+    assert len(got) == len(want) == 6
+    for g, w_ in zip(got, want):
+        _close(g, w_)
+
+
+#: the kernels' edges: S below 16 at hd 16 (one block a head) and 64, the
+#: many-heads plan (two rows a thread, sub-chunks of 4) at S ragged and a
+#: multiple of 16, Di 200 (13 blocks of 16: a cluster of 8 padded past Di)
+EDGE_CASES = [("wkv6", (2, 9, 3, 16), None), ("wkv6", (1, 11, 2, 64), None),
+              ("wkv6", (2, 37, 2, 64), "many"),
+              ("wkv6", (1, 48, 1, 64), "many"),
+              ("selective_scan", (2, 37, 200, 16), None),
+              ("selective_scan", (2, 9, 200, 8), None)]
+
+
+@pytest.mark.parametrize("name,shape,plan", EDGE_CASES)
+def test_transcribed_backward_at_the_kernels_edges(name, shape, plan):
+    """As above, at the shapes where the kernels' plans change: every
+    gradient of the algorithm against ``jax.vjp`` of the reference's
+    scan."""
+    rng = np.random.default_rng(sum(shape) * 11 + len(name))
+    if name == "wkv6":
+        ops, cots = _wkv_inputs(rng, *shape)
+        ref_fn = _jax_wkv
+        mine = lambda *x: wkv6_bwd_transcribed(*x, plan=plan)
     else:
         ops, cots = _ssm_inputs(rng, *shape)
         ref_fn, mine = _jax_ssm, selective_scan_bwd_transcribed

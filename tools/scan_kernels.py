@@ -1,6 +1,6 @@
 """The recurrent scan kernels alone on the card: build, check, time.
 
-    python tools/scan_kernels.py [--checkout DIR] [--tag TAG]
+    python tools/scan_kernels.py [--checkout DIR] [--tag TAG] [--bwd]
 
 builds ``selective_scan``, ``wkv6`` and their backward kernels
 ``selective_scan_bwd`` and ``wkv6_bwd`` (``src/repro_torch/kernels/csrc``
@@ -25,13 +25,22 @@ value, two launches bit-equal, the forward's bits unchanged with its
 checkpoints on) at the smoke's small ragged and unaligned shapes and at
 the training shapes, where they are timed (CUDA events, median of 5, the
 plain backward beside them, and each of the two launches' device time by
-the profiler): an rwkv6-1.6b layer at B 4 x 4,096 and a jamba Mamba layer
-at B 1 x 4,096.
+the profiler): an rwkv6-1.6b layer at B 4 x 4,096 and B 1 x 4,096 and a
+jamba Mamba layer at B 1 x 4,096.  Where the checkout's wrappers report
+it (``*_bwd_plan``), each backward launch's plan is printed beside: values
+a lane (and rows a thread), steps a sub-chunk, threads a block, the
+cluster size, shared bytes, registers, spills, and the blocks and
+clusters resident (the CUDA occupancy calculator).  ``--bwd`` skips the forward kernels' checks and
+times.
 
 The profiler's trace also gives each launch's grid and block, which are
 printed.  The results go to ``chiprun_out/scan_kernels[-TAG].json``.
 Needs a CUDA card and ``nvcc``; some 90 s with the build (a backward
 checkout without the backward kernels times only the forwards).
+
+A/B of two commits on one card, in one chip call: unpack the parent with
+``git archive`` into a gitignored directory (``build/<dir>``) and run
+parent, change, change, parent, each with ``--bwd`` and its own ``--tag``.
 """
 import argparse
 import json
@@ -45,6 +54,9 @@ ap = argparse.ArgumentParser()
 ap.add_argument("--checkout", type=Path, default=ROOT,
                 help="the checkout whose kernels to build, check and time")
 ap.add_argument("--tag", default="", help="suffix of the JSON report")
+ap.add_argument("--bwd", action="store_true",
+                help="the backward kernels only (the forwards build for "
+                     "their checkpoints)")
 args = ap.parse_args()
 CHECKOUT = args.checkout.resolve()
 REPS = 5  # CUDA-event timings of a 32k layer
@@ -153,7 +165,7 @@ cases = (("selective_scan", selective_scan, scan_operands,
           ((2, 37, 3, 16), (3, 21, 5, 64), (4, 1, 32, 64),
            (1, 2048, 32, 64)), (1, 32768, 32, 64), (32, 64)))
 failed = []
-for name, fn, operands, checks, layer, width in cases:
+for name, fn, operands, checks, layer, width in (() if args.bwd else cases):
     rec = report[name] = {"checks": {}}
     for shape in checks + (("unaligned",) + checks[0],):
         *ops, state = operands(*shape[-4:])
@@ -193,13 +205,24 @@ for name, fn, operands, checks, layer, width in cases:
         del ops, state, ops_state
         torch.cuda.empty_cache()
 # the backward kernels: small shapes, then the training shapes, timed
+BWD_SHAPES = (("wkv6_bwd", (4, 4096, 32, 64)), ("wkv6_bwd", (1, 4096, 32, 64)),
+              ("selective_scan_bwd", (1, 4096, 8192, 16)))
+
+
+def bwd_plan(name: str, shape) -> dict:
+    """The checkout's own report of the backward launch, where it has one."""
+    import importlib
+    mod = importlib.import_module(
+        "repro_torch.kernels.wkv6.ops" if name == "wkv6_bwd"
+        else "repro_torch.kernels.selective_scan.ops")
+    fn = getattr(mod, f"{name}_plan", None)
+    return fn(*shape) if fn is not None else {}
+
+
 if "wkv6_bwd" in SCANS:
     for key, rec in cs.scan_bwd_small(dev).items():
         report.setdefault("bwd_checks", {})[key] = rec["max_abs_err"]
-    for name, shape, kernel in (
-            ("wkv6_bwd", (4, 4096, 32, 64), "wkv6_bwd_"),
-            ("selective_scan_bwd", (1, 4096, 8192, 16),
-             "selective_scan_bwd_")):
+    for name, shape in BWD_SHAPES:
         fwd, bwd, _ = cs._scan_fns(name)
         *ops, state = (wkv_operands if name == "wkv6_bwd"
                        else scan_operands)(*shape)
@@ -213,11 +236,12 @@ if "wkv6_bwd" in SCANS:
             continue
         row["device_ms"] = {}
         for part in ("kernel", "finish"):
-            prof = profiled(lambda: bwd(*bwd_args), kernel + part, n=5)
+            prof = profiled(lambda: bwd(*bwd_args), f"{name}_{part}", n=5)
             row["device_ms"][part] = prof["device_ms"]
             row[f"{part}_launch"] = {k: prof[k] for k in (
                 "grid", "block", "registers_per_thread", "shared_memory")}
-        report[name] = {str(shape): row}
+        row["plan"] = bwd_plan(name, shape)
+        report.setdefault(name, {})[str(shape)] = row
         print(f"[time] {name} {shape}: {row['ms']:.4f} ms (CUDA events, "
               f"median of {REPS}), device: scan "
               f"{row['device_ms']['kernel']:.4f} ms, sums "
@@ -225,7 +249,7 @@ if "wkv6_bwd" in SCANS:
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
               f"{row['ms'] / row['bound_ms']:.1f}x; plain "
               f"{row['plain_ms']:.1f} ms; scan launch "
-              f"{row['kernel_launch']}")
+              f"{row['kernel_launch']}; plan {row['plan']}")
         del ops, state, dout, ckpt, bwd_args
         torch.cuda.empty_cache()
 tag = f"-{args.tag}" if args.tag else ""

@@ -39,7 +39,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (the paper's is 4096x4096: some 500,000 tasks, which the host-bound
    elastic pool, at a few hundred tasks a second, cannot finish inside
    the smoke's time limit), through
-   ``run_irregular`` on the elastic pool with and without batching, then
+   ``run_irregular`` on the elastic pool without batching, and with
+   batching at 256 x 256 (``MS_BATCHING_SIDE``, for the smoke's time), then
    once more at 256 x 256 under ``torch.profiler`` (the device's idle
    share, every ``mandelbrot`` launch's duration, and the share of the
    wall time in which a launch over 1 ms ran); all three images must
@@ -77,15 +78,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``torch.sparse.mm`` of the CSR adjacency with the level's operand (the
    product alone, timed, never called by the port); the build fails if
    ``bc_level`` spills; then ``bc_spec(BC_PAPER, n_tasks=128,
-   regenerate_graph=True)`` through ``run_irregular`` three times: on the
-   elastic pool (the timed run, sources per second), on a local pool of 4
+   regenerate_graph=True)`` through ``run_irregular``: on the elastic
+   pool (the timed run, sources per second), on a local pool of 4
    threads with batching, which fuses queued blocks into
    ``execute_batch`` calls (the elastic pool would run each block on its
-   own), and on the elastic pool under ``torch.profiler`` (the device's
-   idle share, every level launch's duration, the profiler's cost in
-   wall time); the elastic maps must be bit-equal and the fused one
-   agree within the reference's tolerances; 3 sampled tasks of the first
-   run replayed through the plain versions bit for bit;
+   own), and its first 32 blocks on the elastic pool under
+   ``torch.profiler`` (the device's idle share, every level launch's
+   duration, the profiler's cost in wall time against the timed run's
+   per task); the profiled map must equal the timed run's partials of
+   its blocks, summed in key order, bit for bit, and the fused map agree
+   within the reference's tolerances; 3 sampled tasks of the first run
+   replayed through the plain versions bit for bit;
 8. faults, master kills and resumes, and the hybrid, sim and speculative
    pools (run after BC; ``phase_chaos``): the reference's
    ``chaos_mortality`` row at its own shapes on the sim pool (UTS, MS, BC
@@ -229,16 +232,34 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (finite, ``router_aux`` > 0, 2 ``selective_scan``, 1
    ``selective_scan_bwd``, 2 flash forward and 1 flash backward launches
    a step, every expert that got pairs a finite non-zero gradient);
-14. every process the run started is stopped and waited for (the
+14. the mesh path (``phase_mesh``): one card is a world of 1, a 1 x 1
+   ("data", "model") mesh over NCCL (``launch/mesh.make_host_mesh``);
+   gemma3-1b at full width and depth trained 3 steps of 2 x 4,096
+   through ``train(mesh=...)`` (``plan_cell(mesh, fsdp=True)``: FSDP
+   gathers and reduce-scatters, the model axis's collectives, the
+   vocab-parallel loss, all on one rank), its losses held to phase 13's
+   unbroken run bit for bit (a world of 1 sums in the same order), 52 forward
+   and 26 backward flash launches a step, its step time beside phase
+   13's and its peak memory; its checkpoint restored with
+   ``shardings=`` bit-equal to the same steps replayed through
+   ``plan_cell``; deepseek-moe-16b cut to 2 layers through ``moe_apply``
+   with the replicated and the all-to-all dispatch: a train step each
+   (the replicated one's loss against the meshless step's) and a
+   4,096-token prefill each, whose MoE output must equal
+   ``moe_block_local`` with ``n_shards=1`` on its own operands at the
+   dispatch's capacity, bit for bit;
+15. every process the run started is stopped and waited for (the
    resource tracker of the BC oracle's spawn pool, which would outlive
    the script, and any other left over, listed in the report), then one
    JSON line with every kernel's launches on each main path, error,
    times and bound, and the last line ``{"ok": true, "device": ...}``.
    A failing run stops its processes too.
 
-Each of the main-path runs (three UTS, two Mariani-Silver, three BC,
+Each of the main-path runs (three UTS, two Mariani-Silver (since the
+mesh phase the second, with batching on, at 256²), three BC,
 prefill, decode, serve, each family's prefill and decode, the MoE and
-rwkv6 serves), and each run of phases 8 and 9 on the card, is
+rwkv6 serves, the training and mesh paths), and each run of phases 8 and
+9 on the card, is
 driven with the launch counts set to 0 just before it and read just after
 it, and fails unless its kernel launched (BC: both level kernels); phase
 9's replays, fit and host-only rows must launch none.  Decode and
@@ -267,6 +288,7 @@ reference package.  It needs CUDA: without a card it exits with code 2.
 """
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import os
@@ -296,6 +318,9 @@ MS_DWELL = 5_000_000
 #: fast host, twice that on a slow one)
 UTS_PROFILE_DEPTH = 12
 MS_PROFILE_SIDE = 256
+#: the elastic MS run with batching on, cut for the smoke's time to this
+#: side (since the mesh phase; some 30 s less on a fast host)
+MS_BATCHING_SIDE = 256
 #: the plain dwell runs a sampled main-path launch at its own max_dwell
 #: only if every point escapes within this many iterations; else at this
 MS_SAMPLE_CAP = 4096
@@ -1449,19 +1474,21 @@ def phase_ms(dev, side: int, max_dwell: int, clock_hz: float) -> dict:
         return go
 
     runs, images = {}, {}
+    p_batch = ms_params(MS_BATCHING_SIDE, max_dwell)
     with OperandTap("mandelbrot", k=MS_SAMPLES_PER_SHAPE) as tap:
-        for batching in (False, True):
+        for batching, pb in ((False, p), (True, p_batch)):
             name = f"elastic batching={batching}"
             r, wall, n = run_path(f"MS {name}", "mandelbrot",
-                                  elastic(batching))
-            images[name] = r.output["image"]
+                                  elastic(batching, pb))
+            images[name] = (pb, r.output["image"])
             runs[name] = {"seconds": wall, "tasks": r.tasks,
-                          "mp_per_s": p.width * p.height / wall / 1e6,
+                          "side": pb.width,
+                          "mp_per_s": pb.width * pb.height / wall / 1e6,
                           "filled": int(r.output["filled"]),
                           "evaluated": int(r.output["evaluated"]),
                           "launches": n}
-            log(f"[ms] {p.width}x{p.height} sd {p.initial_subdivision} "
-                f"depth {p.max_depth} max_dwell {max_dwell} {name}: "
+            log(f"[ms] {pb.width}x{pb.height} sd {pb.initial_subdivision} "
+                f"depth {pb.max_depth} max_dwell {max_dwell} {name}: "
                 f"{r.tasks} tasks, {wall:.3f} s, "
                 f"{runs[name]['mp_per_s']:.4f} MP/s, filled "
                 f"{r.output['filled']}, evaluated {r.output['evaluated']}, "
@@ -1490,21 +1517,21 @@ def phase_ms(dev, side: int, max_dwell: int, clock_hz: float) -> dict:
         f"{int(oracle.astype(np.int64).sum())} iterations; Mariani-Silver "
         f"over it: {tasks} tasks, {sampled} pixels filled with another "
         f"dwell than theirs")
-    for name, img in images.items():
-        if img.shape != expected.shape or not np.array_equal(img, expected):
+    small = {MS_PROFILE_SIDE: p_prof, MS_BATCHING_SIDE: p_batch}
+    want = {side: mariani_silver_over(naive_render(q, device=dev), q)[0]
+            for side, q in small.items()}
+    want[p.width] = expected
+    for name, (pb, img) in [*images.items(),
+                            ("profiled", (p_prof, prof_image))]:
+        exp = want[pb.width]
+        if img.shape != exp.shape or not np.array_equal(img, exp):
             raise AssertionError(
-                f"MS {name}: image differs from Mariani-Silver over "
-                f"naive_render on {int((img != expected).sum())} pixels")
-    prof_expected, _ = mariani_silver_over(naive_render(p_prof, device=dev),
-                                           p_prof)
-    if not np.array_equal(prof_image, prof_expected):
-        raise AssertionError(
-            f"MS profiled {MS_PROFILE_SIDE}^2: image differs from "
-            f"Mariani-Silver over naive_render on "
-            f"{int((prof_image != prof_expected).sum())} pixels")
-    log(f"[ms] both images equal Mariani-Silver over naive_render (and "
-        f"naive_render itself on all but those {sampled} pixels), and the "
-        f"profiled {MS_PROFILE_SIDE}^2 image its own")
+                f"MS {name} {pb.width}^2: image differs from Mariani-Silver "
+                f"over naive_render on {int((img != exp).sum())} pixels")
+    log(f"[ms] every image equals Mariani-Silver over naive_render at its "
+        f"side ({p.width}^2: naive_render itself on all but those {sampled} "
+        f"pixels; batching on at {MS_BATCHING_SIDE}^2, profiled at "
+        f"{MS_PROFILE_SIDE}^2)")
     samples.update(time_border_strips(oracle, p, rects, dev, MS_SAMPLE_CAP,
                                       clock_hz))
     return {"launches": {k: r["launches"] for k, r in runs.items()},
@@ -1573,6 +1600,10 @@ BC_ORACLE_SOURCES = 8
 BC_ORACLE_WORKERS = 4
 #: main-path tasks replayed through the plain version
 BC_REPLAY_TASKS = 3
+#: the elastic run under the profiler runs the first this many of the
+#: main path's blocks (since the mesh phase; some 40 s less), its map held
+#: bit for bit to the timed run's partials of the same blocks
+BC_PROFILE_TASKS = 32
 #: threads of the local pool of the fused run: it fuses up to this many
 #: queued blocks into one ``execute_batch`` call (``run_irregular``)
 BC_LOCAL_WIDTH = 4
@@ -1937,9 +1968,11 @@ def phase_bc(dev) -> dict:
     kernels at fixed shapes, timed once the oracle's workers have ended;
     ``bc_spec(BC_PAPER, n_tasks=128, regenerate_graph=True)`` through
     ``run_irregular`` on the elastic pool (the timed run), on a local
-    pool that fuses queued blocks into ``execute_batch`` calls, and on the
-    elastic pool under the profiler; sampled tasks of the first run
-    replayed through the plain versions."""
+    pool that fuses queued blocks into ``execute_batch`` calls, and its
+    first ``BC_PROFILE_TASKS`` blocks on the elastic pool under the
+    profiler (their map bit-equal to the timed run's partials of them);
+    sampled tasks of the first run replayed through the plain versions."""
+    import dataclasses
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -2041,6 +2074,8 @@ def phase_bc(dev) -> dict:
     picked = {int(blocks[i][0]) for i in np.random.default_rng(17).choice(
         BC_PAPER_TASKS, BC_REPLAY_TASKS, replace=False)}
     kept: dict = {}
+    first = {int(b[0]) for b in blocks[:BC_PROFILE_TASKS]}
+    first_kept: dict = {}
     fused: list = []
 
     def path(name: str):
@@ -2054,10 +2089,15 @@ def phase_bc(dev) -> dict:
                 with make_pool("local", max_concurrency=BC_LOCAL_WIDTH) as lp:
                     return run_irregular(lp, bc_fuse_tap(spec, fused),
                                          batching=True)
+            if name == "elastic profiled":      # the first blocks only
+                seed = spec.seed
+                spec = dataclasses.replace(spec, seed=lambda shape: seed(
+                    shape)[:BC_PROFILE_TASKS])
+            else:
+                spec = bc_task_tap(bc_task_tap(spec, picked, kept), first,
+                                   first_kept)
             with elastic_pool() as ep:
-                return run_irregular(
-                    ep, bc_task_tap(spec, picked, kept)
-                    if name == "elastic" else spec)
+                return run_irregular(ep, spec)
         if name == "elastic profiled":
             return lambda: device_timeline(go, "_level_kernel")
         return go
@@ -2079,14 +2119,16 @@ def phase_bc(dev) -> dict:
             raise AssertionError(f"BC {name}: map of shape {out.shape} not "
                                  f"finite and non-negative")
         maps[name] = out
+        sources = n if name != "elastic profiled" else sum(
+            len(b) for b in blocks[:BC_PROFILE_TASKS])
         runs[name] = {"seconds": wall, "tasks": r.tasks,
-                      "sources_per_s": n / wall,
+                      "sources_per_s": sources / wall,
                       "launches": {"bc_forward_level": n_fwd,
                                    "bc_backward_level": n_bwd},
                       "peak_memory_gb": torch.cuda.max_memory_allocated()
                       / 1e9}
-        log(f"[bc] BC_PAPER, {BC_PAPER_TASKS} tasks, regenerate_graph, "
-            f"{name}: {r.tasks} tasks, {wall:.3f} s, {n / wall:.1f} "
+        log(f"[bc] BC_PAPER, {r.tasks} tasks, regenerate_graph, "
+            f"{name}: {r.tasks} tasks, {wall:.3f} s, {sources / wall:.1f} "
             f"sources/s, {n_fwd} forward and {n_bwd} backward level "
             f"launches, peak device memory "
             f"{runs[name]['peak_memory_gb']:.2f} GB; map sum {out.sum():.6e}, "
@@ -2098,12 +2140,14 @@ def phase_bc(dev) -> dict:
     runs["local fused"]["blocks_per_call"] = {
         k: fused.count(k) for k in sorted(set(fused))}
     prof["device_ms_per_task"] = sum(
-        v["sum_ms"] for v in prof["by_name"].values()) / BC_PAPER_TASKS
+        v["sum_ms"] for v in prof["by_name"].values()) / BC_PROFILE_TASKS
+    # against the timed run's wall for as many tasks
     prof["overhead"] = (runs["elastic profiled"]["seconds"] /
-                        runs["elastic"]["seconds"] - 1)
+                        (runs["elastic"]["seconds"] * BC_PROFILE_TASKS
+                         / BC_PAPER_TASKS) - 1)
     log(f"[bc] local fused: {len(fused)} execute_batch calls, blocks per "
-        f"call {runs['local fused']['blocks_per_call']}; the "
-        f"{BC_PAPER_TASKS}-task run under the profiler: "
+        f"call {runs['local fused']['blocks_per_call']}; the first "
+        f"{BC_PROFILE_TASKS} tasks under the profiler: "
         f"{prof['device_ops']} device operations, busy {prof['busy_s']:.3f} "
         f"s, idle share {prof['idle_share']:.4f}, wall {prof['overhead']:+.4f}"
         f" against the unprofiled run; level kernels "
@@ -2112,12 +2156,20 @@ def phase_bc(dev) -> dict:
     # keyed partials, each a deterministic function of its block, summed in
     # key order: the elastic runs agree bit for bit; fusing sums a call's
     # blocks in another order
-    if not np.array_equal(maps["elastic"], maps["elastic profiled"]):
-        raise AssertionError("BC: the two elastic maps differ")
+    if len(first_kept) != BC_PROFILE_TASKS:
+        raise AssertionError(f"BC: kept {len(first_kept)} of the first "
+                             f"{BC_PROFILE_TASKS} tasks' partials")
+    want = bc_spec(p, n_tasks=BC_PAPER_TASKS, device=dev).finalize(
+        [(k, part) for k, (_, part) in first_kept.items()])
+    if not np.array_equal(want, maps["elastic profiled"]):
+        raise AssertionError("BC: the profiled elastic map differs from the "
+                             "timed run's partials of its blocks")
     a, b = maps["elastic"], maps["local fused"]
     if not np.allclose(a, b, rtol=BC_RTOL, atol=BC_ATOL):
         raise AssertionError("BC: the elastic and the fused maps disagree")
-    log(f"[bc] the two elastic maps are bit-equal; the fused map agrees "
+    log(f"[bc] the profiled run's map over the first {BC_PROFILE_TASKS} "
+        f"blocks equals the timed run's partials of them, summed in key "
+        f"order, bit for bit; the fused map agrees "
         f"within rtol {BC_RTOL}, atol {BC_ATOL} (max |d| "
         f"{float(np.abs(a - b).max()):.3e})")
 
@@ -5374,6 +5426,296 @@ def phase_training(dev) -> dict:
     return out
 
 
+#: phase 14: train steps of gemma3-1b through the mesh path, and where its
+#: checkpoint goes (deleted after)
+MESH_STEPS = 3
+MESH_DIR = ROOT / "build" / "mesh_ckpt"
+
+
+class MoEApplyTap:
+    """While open, records every ``moe_apply`` call of the model
+    (``repro_torch.models.transformer``'s name for it): its parameters,
+    input, dispatch and output; nothing syncs until read."""
+
+    def __enter__(self) -> "MoEApplyTap":
+        import repro_torch.models.transformer as tr
+        self.module, self.fn, self.calls = tr, tr.moe_apply, []
+        tr.moe_apply = self._apply
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.module.moe_apply = self.fn
+
+    def _apply(self, params, x, cfg, **kw):
+        y, aux, counts = self.fn(params, x, cfg, **kw)
+        self.calls.append({"params": params, "x": x, "cfg": cfg, "y": y,
+                           "aux": aux, "dispatch": kw["dispatch"]})
+        return y, aux, counts
+
+
+def moe_block_twin(call: dict):
+    """``moe_block_local`` with ``n_shards=1`` (plus the shared experts) on
+    a tapped world-1 ``moe_apply`` call's own operands, at the per-expert
+    capacity its dispatch used: the block's own for "replicated", the
+    all-to-all's ``c_loc`` for "a2a" (at one shard ``c_send`` keeps every
+    pair, and ``c_loc`` is the capacity over what arrived)."""
+    import dataclasses
+    from repro_torch.models.moe import moe_block_local, shared_expert_mlp
+    cfg, x = call["cfg"], call["x"]
+    b, s, d = x.shape
+    if call["dispatch"] == "a2a":
+        pairs = b * s * cfg.top_k
+        c_send = max(4, int(pairs * cfg.capacity_factor + 0.999))
+        c_loc = max(4, int(c_send * cfg.capacity_factor / cfg.n_experts
+                           + 0.999))
+        cfg = dataclasses.replace(cfg, capacity_factor=c_loc * cfg.n_experts
+                                  / pairs)
+    out, aux, _ = moe_block_local(call["params"], x.reshape(b * s, d), cfg,
+                                  n_shards=1, shard_ix=0, tp_axis=None)
+    out = out.reshape(b, s, d)
+    if cfg.n_shared:
+        out = out + shared_expert_mlp(call["params"]["shared"], x)
+    return out, aux
+
+
+def mesh_train(dev, mesh, paths: dict, training: dict) -> dict:
+    """gemma3-1b at full width and depth, ``MESH_STEPS`` steps of 2 x 4,096
+    through ``train(mesh=...)`` (``plan_cell(mesh, fsdp=True)``; every
+    leaf of 2^20 elements or more FSDP-sharded over "data", gathered at use
+    and reduce-scattered), from phase 13's seed and schedule: its losses
+    against phase 13's unbroken run (c), its step time beside phase 13's
+    (at a world of 1 the difference is the mesh path's own cost: the
+    gathers' copies, the one-rank collectives, the vocab-parallel loss),
+    peak memory; the checkpoint it saves at its last step restored with
+    ``shardings=`` (the train loop's resume, ``restore_state``) and held bit
+    for bit to the state of the same steps replayed through
+    ``plan_cell``."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import plan_cell
+    from repro_torch.launch.train import restore_state, train
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    cfg = get_config(ARCH)
+    per_step = {"flash_attention_fwd": 2 * cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers}
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the earlier phases' objects are frozen out of the garbage collector's
+    # passes, so the steps' times are the path's own; the time spent in
+    # collections while they run is read all the same
+    gc.collect()
+    gc.freeze()
+    gc_pass = {"s": 0.0, "n": 0}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_pass["t0"] = time.perf_counter()
+        elif "t0" in gc_pass:
+            gc_pass["s"] += time.perf_counter() - gc_pass.pop("t0")
+            gc_pass["n"] += 1
+    gc.callbacks.append(on_gc)
+    try:
+        r, wall, _ = counted_path(
+            f"{ARCH} train on a 1x1 mesh (fsdp)", lambda: train(
+                ARCH, smoke=False, steps=MESH_STEPS, global_batch=TRAIN_B,
+                seq_len=TRAIN_S, peak_lr=TRAIN_LR, log_every=1,
+                total_steps=TRAIN_STEPS, mesh=mesh,
+                ckpt_dir=str(MESH_DIR), ckpt_every=MESH_STEPS),
+            {k: v * MESH_STEPS for k, v in per_step.items()}, paths)
+    finally:
+        gc.callbacks.remove(on_gc)
+        gc.unfreeze()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    meshless = dict(training["train"]["losses"]["c"])
+    losses = [l for _, l in r["losses"]]
+    want = [meshless[s] for s, _ in r["losses"]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    steps_s = [t for s, t in r["step_s"] if s > 0]
+    rec = {"steps": MESH_STEPS, "losses": losses, "meshless_losses": want,
+           "bit_equal": losses == want, "max_rel_diff": rel,
+           "step_s": steps_s, "step_s_median": statistics.median(steps_s),
+           "meshless_step_s_median": training["train"]["step_s_median"],
+           "peak_memory_gb": peak,
+           "meshless_peak_memory_gb": training["train"]["peak_memory_gb"],
+           "save_s": r["save_s"], "wall_s": wall,
+           "gc_s": gc_pass["s"], "gc_passes": gc_pass["n"],
+           "launches_per_step": per_step}
+    log(f"[mesh] {ARCH} B={TRAIN_B} S={TRAIN_S}, {MESH_STEPS} steps on a 1x1 "
+        f"mesh over NCCL (fsdp): losses {losses}; phase 13's {want}; bit for "
+        f"bit: {rec['bit_equal']} (max rel diff {rel:.3e}); step "
+        f"{rec['step_s_median']:.4f} s (median, first excluded, of "
+        f"{[round(t, 4) for t in steps_s]}) against "
+        f"{rec['meshless_step_s_median']:.4f} s meshless; peak {peak:.2f} GB "
+        f"against {rec['meshless_peak_memory_gb']:.2f}; checkpoint saved in "
+        f"{r['save_s']:.3f} s; the host's garbage collector "
+        f"{gc_pass['s']:.3f} s in {gc_pass['n']} passes")
+    if not rec["bit_equal"]:
+        raise AssertionError(f"mesh losses {losses} against {want}")
+
+    # the same steps replayed, and the checkpoint restored with shardings
+    opt_cfg = AdamWConfig(peak_lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+                          warmup_steps=max(1, TRAIN_STEPS // 20))
+    plan = plan_cell(cfg, ShapeSpec("custom", TRAIN_S, TRAIN_B, "train"),
+                     mesh, opt_cfg=opt_cfg)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                                  global_batch=TRAIN_B))
+    params = init_params(cfg, 0, device=dev, ctx=plan.ctx)
+    opt = init_opt_state(params, opt_cfg)
+    replay = []
+    for s in range(MESH_STEPS):
+        _, _, m = plan.step(params, opt, data.batch(s))
+        replay.append(float(m["loss"]))
+    rec["replay_equal"] = replay == losses
+
+    t0 = time.monotonic()
+    cpu = torch.device("cpu")
+    step, got_params, got_opt = restore_state(
+        cfg, CheckpointManager(str(MESH_DIR)), None, None, cpu, plan.ctx)
+    rec["restore_s"] = time.monotonic() - t0
+    mismatched = [n for tree, got in ((params, got_params), (opt, got_opt))
+                  for (n, a), (_, b) in zip(_leaves(tree), _leaves(got))
+                  if not torch.equal(a.detach().to(cpu), b)]
+    if step != MESH_STEPS:
+        mismatched.append(f"step {step}")
+    rec["restored_bit_equal"] = not mismatched
+    log(f"[mesh] replayed through plan_cell(mesh): losses equal: "
+        f"{rec['replay_equal']}; the checkpoint restored with shardings= "
+        f"in {rec['restore_s']:.3f} s, bit-equal to the replayed state: "
+        f"{rec['restored_bit_equal']}")
+    if not rec["replay_equal"] or mismatched:
+        raise AssertionError(f"mesh replay {replay} against {losses}; "
+                             f"restored leaves differing {mismatched[:5]}")
+    del params, opt, plan, got_params, got_opt
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_moe(dev, mesh, paths: dict) -> dict:
+    """deepseek-moe-16b at full width cut to 2 layers (one dense, one MoE, as
+    phase 13 cuts it), through ``moe_apply`` under both dispatches
+    (``FLAGS.moe_a2a`` off and on): one train step of 1 x 4,096 each (the
+    replicated dispatch's loss against the meshless step's from the same
+    weights), and a 4,096-token prefill each whose MoE layer's output is
+    held to ``moe_block_local`` with ``n_shards=1`` on its own operands,
+    at the capacity the dispatch used (bit for bit)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import plan_cell
+    from repro_torch.models import Stage, init_params
+    from repro_torch.models.flags import reset_flags, set_flags
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, stages=tuple(
+        Stage(1, st.pattern) for st in full.stages))
+    opt_cfg = AdamWConfig(peak_lr=TRAIN_LR, total_steps=1, warmup_steps=1)
+    shape = ShapeSpec("custom", TRAIN_S, 1, "train")
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=TRAIN_S, global_batch=1)).batch(0)
+    toks = {"tokens": torch.from_numpy(batch["tokens"]).to(dev)}
+    step_want = {"flash_attention_fwd": 2 * cfg.n_layers,
+                 "flash_attention_bwd": cfg.n_layers}
+    pre_want = {"flash_attention_fwd": cfg.n_layers,
+                "flash_attention_bwd": 0}
+    rec: dict = {"reduced": {"n_layers": [full.n_layers, cfg.n_layers]}}
+
+    def one_step(mesh_or_none, name):
+        plan = plan_cell(cfg, shape, mesh_or_none, opt_cfg=opt_cfg,
+                         device=dev)
+        params = init_params(cfg, 0, device=dev, ctx=plan.ctx)
+        opt = init_opt_state(params, opt_cfg)
+        (_, _, m), wall, _ = counted_path(
+            name, lambda: plan.step(params, opt, batch), step_want, paths)
+        del params, opt
+        torch.cuda.empty_cache()
+        return float(m["loss"]), wall
+
+    meshless, _ = one_step(None, f"{MOE_ARCH} 2 layers train step, "
+                                 f"meshless")
+    try:
+        for dispatch in ("replicated", "a2a"):
+            reset_flags()
+            set_flags(moe_a2a=dispatch == "a2a")
+            loss, wall = one_step(mesh, f"{MOE_ARCH} 2 layers train step, "
+                                        f"1x1 mesh, {dispatch}")
+            pre = plan_cell(cfg, ShapeSpec("p", TRAIN_S, 1, "prefill"), mesh)
+            params = init_params(cfg, 0, device=dev, ctx=pre.ctx)
+            with MoEApplyTap() as tap:
+                (logits, _), pwall, _ = counted_path(
+                    f"{MOE_ARCH} 2 layers prefill 4096, 1x1 mesh, "
+                    f"{dispatch}", lambda: pre.step(params, toks), pre_want,
+                    paths)
+            call = tap.calls[0]
+            with torch.no_grad():
+                twin, twin_aux = moe_block_twin(call)
+            out = {"loss": loss, "step_s": wall, "prefill_s": pwall,
+                   "moe_calls": len(tap.calls), "dispatch_run":
+                   call["dispatch"],
+                   "moe_bit_equal": bool(torch.equal(call["y"], twin)),
+                   "aux_bit_equal": bool(torch.equal(call["aux"], twin_aux)),
+                   "finite": bool(torch.isfinite(logits).all())}
+            if dispatch == "replicated":
+                out["meshless_loss"] = meshless
+                out["loss_bit_equal"] = loss == meshless
+            rec[dispatch] = out
+            log(f"[mesh] {MOE_ARCH} 2 layers, {dispatch} dispatch on a 1x1 "
+                f"mesh: train step loss {loss:.6f}"
+                + (f" (meshless {meshless:.6f}, bit for bit "
+                   f"{out['loss_bit_equal']})" if dispatch == "replicated"
+                   else "")
+                + f", {wall:.3f} s; prefill 4096 {pwall:.3f} s, its MoE "
+                f"layer ({call['dispatch']}) bit-equal to moe_block_local "
+                f"(n_shards 1) on its operands: {out['moe_bit_equal']}, aux "
+                f"{out['aux_bit_equal']}")
+            del params, pre, tap, call, twin
+            torch.cuda.empty_cache()
+            if not (out["moe_bit_equal"] and out["aux_bit_equal"]
+                    and out["finite"] and out["dispatch_run"] == dispatch
+                    and loss == loss):
+                raise AssertionError(f"mesh MoE {dispatch}: {out}")
+            if dispatch == "replicated" and not out["loss_bit_equal"]:
+                raise AssertionError(f"mesh MoE loss {loss} against the "
+                                     f"meshless {meshless}")
+    finally:
+        reset_flags()
+    return rec
+
+
+def phase_mesh(dev, training: dict) -> dict:
+    """Phase 14: the mesh path on the card.  One card is a world of 1: a
+    1 x 1 ("data", "model") mesh over NCCL (``make_host_mesh``), which runs
+    every line of the path (the process groups, the FSDP gathers and
+    reduce-scatters, the model axis's all-reduces, the vocab-parallel loss,
+    the MoE all-to-all) on one rank; worlds of 2 and 4 are the CPU tests'
+    (``tests/test_torch_mesh.py``, gloo).  ``mesh_train``, ``mesh_moe``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t_phase = time.monotonic()
+    paths: dict = {}
+    out: dict = {"launches": paths, "world": 1, "mesh": "1x1 (data, model)",
+                 "backend": "nccl"}
+    # NCCL's bootstrap on the loopback device: a world of 1 needs no other
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    mesh = make_host_mesh(1, 1)
+    try:
+        out["train"] = mesh_train(dev, mesh, paths, training)
+        out["moe"] = mesh_moe(dev, mesh, paths)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.monotonic() - t_phase
+    log(f"[mesh] phase: {out['seconds']:.1f} s")
+    return out
+
+
 def close_logits(a, b, what: str) -> dict:
     """Two logits tensors under the whole-model gate: max |a - b| within
     MODEL_REL_TOL of b's largest |logit|, cosine at least MODEL_MIN_COS."""
@@ -5626,6 +5968,7 @@ def main() -> int:
     families = phase_model_families(dev)
     recurrent = phase_recurrent_families(dev)
     training = phase_training(dev)
+    mesh = phase_mesh(dev, training)
     # run_path has already required a launch on every path that runs a
     # hand kernel
     kernels["uts_expand"]["launches_by_path"] = uts["launches"]
@@ -5700,7 +6043,7 @@ def main() -> int:
         kernels[name] = {
             "matched": True, "launches_by_path": {
                 **families["launches"][name], **recurrent["launches"][name],
-                **training["launches"][name]},
+                **training["launches"][name], **mesh["launches"][name]},
             **{x: k[x] for x in ("max_abs_err", "bit_equal", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "shape")}}
@@ -5716,7 +6059,8 @@ def main() -> int:
             **{p: n for ph in (model, families, recurrent)
                for p, n in ph["launches"].get("flash_attention_bwd",
                                               {}).items()},
-            **training["launches"]["flash_attention_bwd"]},
+            **training["launches"]["flash_attention_bwd"],
+            **mesh["launches"]["flash_attention_bwd"]},
         **{k: bwd["global"][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms", "shape",
                                          "deterministic", "floor_ms",
@@ -5731,6 +6075,7 @@ def main() -> int:
         "max_abs_err_is": "max |err| / max |value| of each of dQ, dK, dV"}
     flash["launches_by_path"].update(
         training["launches"]["flash_attention_fwd"])
+    flash["launches_by_path"].update(mesh["launches"]["flash_attention_fwd"])
     # the scans' backward kernels, measured on a training layer's own
     # operands (an rwkv6-1.6b layer and a jamba Mamba layer, B 1, S 4,096),
     # the small ragged and unaligned shapes' errors beside them; launches on
@@ -5743,7 +6088,7 @@ def main() -> int:
         kernels[name] = {
             "matched": True,
             "launches_by_path": {
-                p: n for ph in (model, families, recurrent, training)
+                p: n for ph in (model, families, recurrent, training, mesh)
                 for p, n in ph["launches"].get(name, {}).items()},
             "max_abs_err": max([k["max_abs_err"], *small.values()]),
             "max_abs_err_is": "max |err| / max |value| of each gradient",
@@ -5787,7 +6132,7 @@ def main() -> int:
               "flash_fixed_shapes": flash_fixed, "uts": uts, "ms": ms,
               "ms_paper_size": paper, "bc": bc, "chaos": chaos,
               "harness": harness, "model": model, "families": families,
-              "recurrent": recurrent, "training": training,
+              "recurrent": recurrent, "training": training, "mesh": mesh,
               "leftover_processes_stopped": leftover}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -17,9 +17,11 @@ optionally asynchronous: :meth:`CheckpointManager.save` copies every leaf
 to host memory before it returns (the caller may update its tensors in
 place at the next step) and writes in a background thread; ``keep`` bounds
 the checkpoints kept.  :func:`restore_pytree` places each leaf on the
-device of the target's leaf (or on ``device``).  The reference's
-re-sharding on restore (``shardings``) needs a mesh, which the port does
-not have yet (ROADMAP.md, queue 4).
+device of the target's leaf (or on ``device``); with ``shardings`` (a tree
+of ``runtime.sharding.NamedSharding``, the target's structure) it keeps
+only this rank's block of each leaf under its spec, on the mesh's device:
+the reference's re-sharding on restore, topology-free (a checkpoint holds
+whole arrays; any mesh restores it).
 
 The training driver (``repro_torch.launch.train``) saves its parameters
 and optimizer state in the reference's stacked layout
@@ -40,6 +42,8 @@ import torch
 
 from ..convert import BF16Bits, to_host
 from ..device import DeviceLike
+from ..runtime.collectives import mesh_device
+from ..runtime.sharding import NamedSharding, shard_local
 
 __all__ = ["CheckpointManager", "save_pytree", "restore_pytree",
            "latest_step"]
@@ -49,6 +53,8 @@ _SEP = "::"
 
 def _flatten_with_names(tree: Any, prefix: Tuple[str, ...] = ()
                         ) -> List[Tuple[str, Any]]:
+    if isinstance(tree, NamedSharding):
+        return [(_SEP.join(prefix), tree)]
     if isinstance(tree, dict):
         return [x for k in sorted(tree)
                 for x in _flatten_with_names(tree[k], prefix + (str(k),))]
@@ -106,11 +112,11 @@ def restore_pytree(target: Any, directory: str, *, shardings: Any = None,
                    device: DeviceLike = None) -> Any:
     """Restore into the structure of ``target`` (names and shapes must
     match): tensors of the saved dtypes, each on ``device`` or else on the
-    device of the target's leaf (the CPU for a non-tensor leaf)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore_pytree(shardings=...) needs a device mesh, which is not "
-            "ported to repro_torch yet (ROADMAP.md, queue 4)")
+    device of the target's leaf (the CPU for a non-tensor leaf); with
+    ``shardings``, each leaf this rank's block under its spec, on
+    ``device`` or else the mesh's device."""
+    shard_named = dict(_flatten_with_names(shardings)) \
+        if shardings is not None else {}
     data = np.load(os.path.join(directory, "arrays.npz"))
     with open(os.path.join(directory, "manifest.json")) as f:
         manifest = json.load(f)
@@ -127,6 +133,13 @@ def restore_pytree(target: Any, directory: str, *, shardings: Any = None,
                                  .copy()).view(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(arr))
+        sharding = shard_named.get(name)
+        if sharding is not None:
+            where = device if device is not None else \
+                mesh_device(sharding.mesh)
+            leaves[name] = shard_local(t, sharding.spec, sharding.mesh).to(
+                where, copy=True)
+            continue
         where = device if device is not None else (
             leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
         leaves[name] = t.to(where)

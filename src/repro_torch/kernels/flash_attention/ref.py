@@ -12,7 +12,9 @@ bounded: a [4, 32768, 32768] float32 score tensor alone is 17 GB.  Every
 row gets the same arithmetic as in one block; the block size changes
 nothing but the peak memory.  With ``return_lse`` it also returns each
 row's log-sum-exp over its masked scores (what the CUDA forward writes for
-its backward).
+its backward).  Under ``FLAGS.p_bf16`` (``models/flags.py``) the
+probabilities are rounded to bf16 before the PV product, as the
+reference's attention rounds them under that flag.
 
 :func:`flash_attention_bwd_ref` is the plain version of the backward
 kernel: autograd over :func:`flash_attention_ref`, which recomputes the
@@ -45,6 +47,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention_ref: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} do not fit")
     g = bhg // bhkv
+    from ...models.flags import FLAGS   # (models imports this module)
+    p_bf16 = FLAGS.p_bf16
     block_rows = max(1, _SCORE_BUDGET // max(1, bhg * skv))
     # GQA: the G query heads of one KV head share its K and V, so fold G
     # into the row axis instead of repeating K and V
@@ -70,6 +74,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             lse[:, :, r0:r1] = torch.logsumexp(s, dim=-1)
         p = torch.softmax(s, dim=-1)
         del s
+        if p_bf16:
+            p = p.to(torch.bfloat16)
         out[:, :, r0:r1] = torch.matmul(p.to(v.dtype), v[:, None]).to(q.dtype)
     out = out.reshape(bhg, sq, dv)
     return (out, lse.reshape(bhg, sq)) if return_lse else out

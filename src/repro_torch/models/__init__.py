@@ -3,8 +3,8 @@ MoE (``moe``), MLA (``mla``), the recurrent mixers Mamba (``mamba``, in
 the jamba hybrid) and RWKV-6 (``rwkv6``), and the modality frontend stubs.
 
 Counterpart of ``repro.models`` with the same exports, ``loss_fn``
-included: the training forward and loss run on one device (the
-reference's ``ShardCtx`` mesh path raises ``NotImplementedError``).
+included: every pass runs on one device, or over a device mesh under a
+``ShardCtx`` (explicit SPMD over ``torch.distributed``).
 """
 from .config import (AttentionConfig, BlockSpec, MambaConfig, MLAConfig,
                      ModelConfig, MoEConfig, Stage)

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
@@ -123,11 +123,15 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
-def clip_by_global_norm(tree: Any, max_norm: float) -> Tuple[Any,
-                                                               torch.Tensor]:
+def clip_by_global_norm(tree: Any, max_norm: float,
+                        norm: Optional[torch.Tensor] = None
+                        ) -> Tuple[Any, torch.Tensor]:
     """(tree scaled to at most ``max_norm``, the norm before the clip); the
-    scale is applied in float32 and each leaf cast back to its dtype."""
-    norm = global_norm(tree)
+    scale is applied in float32 and each leaf cast back to its dtype.
+    ``norm``: the tree's global norm when the caller has it (a sharded
+    tree's, over every rank)."""
+    if norm is None:
+        norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm
 
@@ -146,11 +150,14 @@ def decay_mask(params: Any) -> Any:
 
 
 @torch.no_grad()
-def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig
+def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
+                 *, norm: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, dict, dict]:
     """-> (params, state, metrics {"grad_norm", "lr"}), params and moments
-    updated in place; weight decay where :func:`decay_mask` says."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    updated in place; weight decay where :func:`decay_mask` says.
+    ``norm`` as :func:`clip_by_global_norm`'s (the step on a mesh passes
+    the global norm of its local gradient blocks)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, norm)
     step = state["step"] + 1
     lr = cosine_schedule(cfg)(step)
     b1, b2 = cfg.b1, cfg.b2

@@ -4,9 +4,11 @@ Counterpart of ``repro.optim.compression``: int8 values with a per-tensor
 float32 scale (max |x| / 127), and an error-feedback residual that carries
 the quantization error to the next step.  ``torch.round`` rounds half to
 even, as ``jnp.round`` does, so the int8 values are the reference's.  The
-reference applies it before a cross-pod all-reduce; the port's training
-step runs on one device and does not call it (multi-device training is
-ROADMAP.md's queue 4).
+reference's docstrings describe it as the compression of the cross-pod
+gradient all-reduce, but its train step (``launch/steps.py``) never calls
+it, and no module outside its ``optim/`` does; so the port's steps, on one
+device or a mesh, do not call it either.  It is here as the reference's
+library function, held to it by the tests.
 """
 from __future__ import annotations
 

@@ -3,9 +3,8 @@
 Counterpart of ``repro.runtime.elastic``.  ``FailureInjector``,
 ``rescale_batch_schedule`` and ``ElasticRunner`` are the reference's; a
 "mesh" is whatever ``make_mesh`` returns.  :func:`reshard_tree` moves a
-tree's tensors to a device: the port trains on one card, a world of size
-1, so re-placing state means moving it there (a sharding across cards is
-ROADMAP.md's queue 4).  On a failure the runner restores the latest
+tree's tensors to a device; a re-placement under a mesh's shardings is the
+checkpoint manager's ``restore_pytree(shardings=...)``.  On a failure the runner restores the latest
 checkpoint into host tensors (``restore_latest`` of the port's manager)
 and replays the batches from the restored step.
 

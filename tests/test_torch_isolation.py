@@ -3,7 +3,9 @@ betweenness centrality, a master killed and resumed from its journal, a
 recorded run replayed and calibrated, open-loop traffic, a DAG, the
 examples, the model's prefill, decode and serving loop, a MoE and an MLA
 prefill, the recurrent families' prefill and decode, rwkv6's serving
-loop included, and training with a checkpoint and a resume) with jax, the
+loop included, training with a checkpoint and a resume, and the mesh path
+at a world of 1: training, its checkpoint and resume, and an all-to-all
+MoE prefill) with jax, the
 reference package and ``ml_dtypes`` unimportable, no source file of it
 (nor ``chip_smoke.py``) imports any of them, and ``device=None`` never
 falls back to the CPU."""
@@ -191,6 +193,37 @@ res["losses"] = [l for _, l in a["losses"] + b["losses"]]
 res["resumed"] = [b["start_step"], b["steps"]]
 """, lambda r: (len(r["losses"]) == 3 and r["resumed"] == [2, 1]
                 and all(l == l and l > 0 for l in r["losses"]))),
+    "mesh_train_moe_world1": (r"""
+import tempfile
+from repro_torch.configs import get_smoke_config
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.specs import abstract_params
+from repro_torch.launch.steps import plan_cell
+from repro_torch.launch.train import train
+from repro_torch.models import init_params
+from repro_torch.models.flags import reset_flags, set_flags
+mesh = make_host_mesh(1, 1, device="cpu")
+with tempfile.TemporaryDirectory() as d:
+    a = train("glm4-9b", steps=2, global_batch=2, seq_len=16, ckpt_dir=d,
+              ckpt_every=2, log_every=1, device="cpu", mesh=mesh)
+    b = train("glm4-9b", steps=3, global_batch=2, seq_len=16, ckpt_dir=d,
+              ckpt_every=100, log_every=1, device="cpu", mesh=mesh)
+res["losses"] = [l for _, l in a["losses"] + b["losses"]]
+res["resumed"] = [b["start_step"], b["steps"]]
+cfg = get_smoke_config("deepseek-moe-16b")
+set_flags(moe_a2a=True, seq_shard_acts=True)
+pre = plan_cell(cfg, ShapeSpec("p", 12, 1, "prefill"), mesh)
+lg, _ = pre.step(init_params(cfg, 0, device="cpu", ctx=pre.ctx),
+                 {"tokens": toks % cfg.vocab_size})
+reset_flags()
+res["moe_prefill"] = list(lg.shape)
+res["meta"] = {t.device.type for t in
+               abstract_params(cfg)["stage1"][0]["block0"]["ffn"].values()
+               if hasattr(t, "device")} == {"meta"}
+""", lambda r: (len(r["losses"]) == 3 and r["resumed"] == [2, 1]
+                and all(l == l and l > 0 for l in r["losses"])
+                and r["moe_prefill"] == [1, 256] and r["meta"])),
     "examples": (r"""
 from repro_torch.examples import betweenness_centrality, quickstart
 import repro_torch.examples.mandelbrot_render

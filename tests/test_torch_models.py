@@ -45,7 +45,6 @@ from repro_torch.models import (MambaConfig, ShardCtx, decode_step, forward,
                                 init_cache, init_params, prefill)
 from repro_torch.models.layers import apply_rope, mlp_block, rms_norm, \
     rope_freqs
-from repro_torch.models.moe import moe_apply
 
 ARCHS = ["gemma3-1b", "glm4-9b", "chatglm3-6b", "starcoder2-15b",
          "musicgen-medium", "llava-next-mistral-7b", "deepseek-moe-16b",
@@ -462,15 +461,22 @@ def test_bf16_prefill_cache_dtypes_match_reference():
 
 
 def test_unported_blocks_raise():
-    """What still raises, naming ROADMAP.md: ShardCtx and the MoE mesh
-    path.  The Mamba and RWKV-6 blocks are ported: each mixer and ffn pairing
-    that used to raise builds and runs, in any combination with the
-    others (a gemma3-1b smoke period with its first block swapped)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ShardCtx(mesh=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        moe_apply({}, torch.zeros(1, 2, 4), None, mesh=None,
-                  dp_axes=("data",), tp_axis="model")
+    """What still raises, naming ROADMAP.md: a block kind the reference
+    does not have.  ``ShardCtx`` and the MoE mesh path are ported:
+    ``ShardCtx`` carries the reference's axes (``tests/test_torch_mesh.py``
+    runs it).  The Mamba and RWKV-6 blocks are ported: each mixer and ffn
+    pairing that used to raise builds and runs, in any combination with
+    the others (a gemma3-1b smoke period with its first block swapped)."""
+    ctx = ShardCtx(mesh=None)
+    assert (ctx.dp_axes, ctx.tp_axis, ctx.param_specs) == (("data",),
+                                                          "model", None)
+    base = get_smoke_config("gemma3-1b")
+    for kind in ({"mixer": "conv"}, {"ffn": "kan"}):
+        odd = dataclasses.replace(base, stages=(dataclasses.replace(
+            base.stages[0], pattern=(dataclasses.replace(
+                base.stages[0].pattern[0], **kind),)),))
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            init_params(odd, 0, device="cpu")
     cfg = dataclasses.replace(get_smoke_config("gemma3-1b"), dtype="float32",
                               mamba=MambaConfig(d_state=4, d_conv=2),
                               rwkv_head_size=16)

@@ -124,12 +124,34 @@ def test_combine_is_convex_in_magnitude(t, k):
 
 
 def test_mesh_paths_raise():
-    params, x = _setup(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        moe_apply(params, x[None], CFG, mesh=None, dp_axes=("data",),
-                  tp_axis="model")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _local(params, x, tp_axis="model")
+    """The mesh paths are ported and raise no more: ``moe_block_local``
+    with a ``tp_axis`` runs the same body (its caller reduces over the
+    axis), and ``moe_apply`` on a world of 1 (a 1 x 1 CPU mesh over gloo,
+    n_shards 1) gives ``moe_block_local``'s output bit for bit: the
+    replicated dispatch at the block's capacity, the all-to-all dispatch
+    at its own per-expert capacity ``c_loc`` (at one shard ``c_send``
+    keeps every pair).  Worlds of 4 against the reference:
+    ``tests/test_torch_moe_mesh.py``."""
+    from repro_torch.launch.mesh import make_host_mesh
+    params, x = _setup(16)
+    want = _local(params, x)
+    got = _local(params, x, tp_axis="model")
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    mesh = make_host_mesh(1, 1, device="cpu")
+    y, aux, counts = moe_apply(params, x[None], CFG, mesh=mesh,
+                               dp_axes=("data",), tp_axis="model")
+    assert torch.equal(y[0], want[0]) and torch.equal(aux, want[1])
+    assert torch.equal(counts, want[2])
+    pairs = 16 * CFG.top_k
+    c_send = max(4, int(pairs * CFG.capacity_factor + 0.999))
+    c_loc = max(4, int(c_send * CFG.capacity_factor / CFG.n_experts + 0.999))
+    at_c_loc = dataclasses.replace(CFG, capacity_factor=c_loc * CFG.n_experts
+                                   / pairs)
+    want = _local(params, x, at_c_loc)
+    y, aux, _ = moe_apply(params, x[None], CFG, mesh=mesh,
+                          dp_axes=("data",), tp_axis="model", dispatch="a2a")
+    assert torch.equal(y[0], want[0]) and torch.equal(aux, want[1])
 
 
 # -- parity with the reference at the default capacity -------------------------

@@ -23,8 +23,8 @@
   steps; and a run killed and resumed trains on the unbroken run's batches
   and gives its losses bit for bit.
 * MoE's dispatch and combine (``index_add_``, ``scatter_``, gathers) under
-  ``torch.autograd.gradcheck``; the one-device limits (mesh, FSDP,
-  production mesh) raise; the prefill and decode kinds of ``plan_cell``;
+  ``torch.autograd.gradcheck``; the production mesh raises without its
+  world; the prefill and decode kinds of ``plan_cell``;
   the ``train_lm`` and ``serve_lm`` example twins at small sizes.
 """
 import dataclasses
@@ -200,13 +200,17 @@ def test_moe_dispatch_and_combine_pass_gradcheck():
 
 
 def test_one_device_limits_raise():
+    """Meshes are ported (``tests/test_torch_mesh.py``); what one process
+    cannot do still raises: the production mesh needs a world of 256
+    (512 multi-pod) processes.  Without a mesh ``fsdp`` changes
+    nothing."""
     cfg = get_smoke_config("glm4-9b")
-    with pytest.raises(NotImplementedError, match="queue 4"):
-        plan_cell(cfg, _train_shape(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 4"):
-        plan_cell(cfg, _train_shape(), fsdp=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 4"):
-        train("glm4-9b", steps=1, production_mesh=True, device="cpu")
+    plan = plan_cell(cfg, _train_shape(), fsdp=True, device="cpu")
+    assert plan.mesh is None and plan.ctx is None and not plan.shardings
+    for multi_pod in (False, True):
+        with pytest.raises((RuntimeError, ValueError), match="256|512"):
+            train("glm4-9b", steps=1, production_mesh=True,
+                  multi_pod=multi_pod, device="cpu")
 
 
 def test_prefill_and_decode_kinds():

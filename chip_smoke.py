@@ -40,8 +40,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    elastic pool, at a few hundred tasks a second, cannot finish inside
    the smoke's time limit), through
    ``run_irregular`` on the elastic pool without batching, and with
-   batching at 256 x 256 (``MS_BATCHING_SIDE``, for the smoke's time), then
-   once more at 256 x 256 under ``torch.profiler`` (the device's idle
+   batching at 128 x 128 (``MS_BATCHING_SIDE``, for the smoke's time), then
+   once more at 128 x 128 under ``torch.profiler`` (the device's idle
    share, every ``mandelbrot`` launch's duration, and the share of the
    wall time in which a launch over 1 ms ran); all three images must
    equal Mariani-Silver applied to ``naive_render``'s dwell map of their
@@ -82,7 +82,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    pool (the timed run, sources per second), on a local pool of 4
    threads with batching, which fuses queued blocks into
    ``execute_batch`` calls (the elastic pool would run each block on its
-   own), and its first 32 blocks on the elastic pool under
+   own), and its first 8 blocks on the elastic pool under
    ``torch.profiler`` (the device's idle share, every level launch's
    duration, the profiler's cost in wall time against the timed run's
    per task); the profiled map must equal the timed run's partials of
@@ -214,8 +214,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    launches bit-equal, the forward's output, final state and checkpoints
    the same bits with its checkpoints on and off, kernel time (median of
    5), the plain backward's (one run: autograd over the plain loop takes
-   some 9-11 s at 4,096 steps) and the bound (``scan_bwd_bound``);
-   rwkv6-1.6b's whole model at full width cut to 8 of its 24 layers and
+   some 9-11 s at 4,096 steps) and the bound (``scan_bound``);
+   rwkv6-1.6b's whole model at full width cut to 4 of its 24 layers and
    jamba at full width cut to its blocks 2 and 4 (Mamba + MLP, attention
    + MLP; no MoE, whose routing flips between kernel and plain version),
    each at B 1 x 1,024 (the plain scans at 4,096 would take minutes, and
@@ -247,8 +247,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (the replicated one's loss against the meshless step's) and a
    4,096-token prefill each, whose MoE output must equal
    ``moe_block_local`` with ``n_shards=1`` on its own operands at the
-   dispatch's capacity, bit for bit;
-15. every process the run started is stopped and waited for (the
+   dispatch's capacity, bit for bit; then one more gemma3-1b mesh step,
+   untimed, counted op by op (``benchlib.op_analysis.analyze_step``) and
+   its peak memory read;
+15. the dry run held to the card (``phase_roofline``): in processes of
+   their own, started after the build and run beside phases 3 and 6 (the
+   run waits for them before phase 4), the dry run
+   of that step (gemma3-1b, 2 x 4,096, a 1 x 1 mesh on a fake process
+   group, meta tensors) and of the production cell gemma3-1b ``train_4k``
+   on pod256 (16 x 16); the first's flops, bytes,
+   transcendentals, kernel ops by name and collectives by kind must equal
+   the real step's count exactly, its predicted peak (arguments + temp)
+   be within 15 % of the step's ``max_memory_allocated``, and the second
+   end "ok"; the collectives beside the 674 a step that
+   ``tools/mesh_step_profile.py``'s trace counts, and the roofline terms
+   beside phase 14's median step;
+16. every process the run started is stopped and waited for (the
    resource tracker of the BC oracle's spawn pool, which would outlive
    the script, and any other left over, listed in the report), then one
    JSON line with every kernel's launches on each main path, error,
@@ -256,7 +270,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    A failing run stops its processes too.
 
 Each of the main-path runs (three UTS, two Mariani-Silver (since the
-mesh phase the second, with batching on, at 256²), three BC,
+dry-run phase the second, with batching on, at 128²), three BC,
 prefill, decode, serve, each family's prefill and decode, the MoE and
 rwkv6 serves, the training and mesh paths), and each run of phases 8 and
 9 on the card, is
@@ -314,13 +328,14 @@ UTS_DEPTH = 14
 MS_SIDE = 512
 MS_DWELL = 5_000_000
 #: the runs under the profiler (phases 4 and 5), cut for the smoke's time:
-#: UTS to depth 12, Mariani-Silver to 256x256 (some 7 and 27 s less on a
-#: fast host, twice that on a slow one)
+#: UTS to depth 12, Mariani-Silver to 128x128 (256x256 before the dry-run
+#: phase, 512x512 before that; the last halving some 11 s less on a fast
+#: host)
 UTS_PROFILE_DEPTH = 12
-MS_PROFILE_SIDE = 256
+MS_PROFILE_SIDE = 128
 #: the elastic MS run with batching on, cut for the smoke's time to this
-#: side (since the mesh phase; some 30 s less on a fast host)
-MS_BATCHING_SIDE = 256
+#: side (256 since the mesh phase, 128 since the dry-run phase)
+MS_BATCHING_SIDE = 128
 #: the plain dwell runs a sampled main-path launch at its own max_dwell
 #: only if every point escapes within this many iterations; else at this
 MS_SAMPLE_CAP = 4096
@@ -334,10 +349,14 @@ MS_LONG_MS = 1.0
 #: the full report goes here; the output directory of a chip call
 OUT_DIR = ROOT / "chiprun_out"
 
-#: H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes/s and the
-#: float32 rate outside the tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
+#: the H100's datasheet peaks and the bound helpers (one place for the
+#: port: the dry run's roofline reads the same), and the model kernels'
+#: work formulas, each beside its op.  Outside a checkout these imports
+#: fail, and the script with them.
+from repro_torch.benchlib import (HBM_BW, PEAK_FLOPS,  # noqa: E402
+                                  bound_ms, live_pairs)
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_bound, flash_bwd_bound, flash_bwd_floor)
 #: dispatch rates per SM and clock (lanes): one warp instruction a clock on
 #: each of the 4 sub-partitions, the INT32 pipe's 64 lanes, the FMA pipe
 #: (which also runs IMAD) 128; the UTS kernels' integer bound
@@ -348,9 +367,10 @@ FMA_LANES = 128
 
 #: 32-bit operations per SHA-1 lane: 64 schedule words (3 xor + 1 rotate),
 #: 80 rounds (2 rotates, 4 adds, a 2-operation boolean function on average
-#: counting lop3 as one), 5 final adds.  Held against PEAK_OPS_S, a float32
-#: rate that counts an FMA as two, this is the loose bound of the UTS
-#: kernels (``bound_loose_ms``): the card has half as many INT32 lanes.
+#: counting lop3 as one), 5 final adds.  Held against ``PEAK_OPS_S``, a
+#: float32 rate that counts an FMA as two (``bound_ms``), this is the loose
+#: bound of the UTS kernels (``bound_loose_ms``): the card has half as many
+#: INT32 lanes.
 UTS_OPS_PER_LANE = 64 * 4 + 80 * 8 + 5
 UTS_BYTES_PER_LANE = 44           # 20 B parent + 4 B index in, 20 B out
 UTS_BYTES_PER_NODE = 24           # a digest and a depth
@@ -510,12 +530,6 @@ def cuda_time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple:
-    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_ops / PEAK_OPS_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-
-
 def int_bound_ms(n_bytes: float, lanes: float, sha1: dict) -> tuple:
     """Least time for ``lanes`` SHA-1 compressions against ``n_bytes``:
     the instructions of the compiled body (``sass_pipes``) at the dispatch
@@ -524,7 +538,7 @@ def int_bound_ms(n_bytes: float, lanes: float, sha1: dict) -> tuple:
     per_lane = max(sha1["int"] / INT_LANES, sha1["fma"] / FMA_LANES,
                    sha1["all"] / DISPATCH_LANES)
     t_ops = lanes * per_lane / (sha1["sms"] * sha1["sm_clock_hz"]) * 1e3
-    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_bytes = n_bytes / HBM_BW * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -692,7 +706,7 @@ def expand_bounds(s0: int, count: int, s_final: int, sha1: dict) -> dict:
     n_bytes = (s0 + s_final) * UTS_BYTES_PER_NODE
     b_ms, b_by = int_bound_ms(n_bytes, children, sha1)
     loose_ms, _ = bound_ms(n_bytes, children * UTS_OPS_PER_LANE)
-    stack_ms = (count + children) * UTS_BYTES_PER_NODE / PEAK_BYTES_S * 1e3
+    stack_ms = (count + children) * UTS_BYTES_PER_NODE / HBM_BW * 1e3
     return {"children": children, "bound_ms": b_ms, "bound_by": b_by,
             "bound_loose_ms": loose_ms, "stack_traffic_ms": stack_ms}
 
@@ -1601,9 +1615,10 @@ BC_ORACLE_WORKERS = 4
 #: main-path tasks replayed through the plain version
 BC_REPLAY_TASKS = 3
 #: the elastic run under the profiler runs the first this many of the
-#: main path's blocks (since the mesh phase; some 40 s less), its map held
-#: bit for bit to the timed run's partials of the same blocks
-BC_PROFILE_TASKS = 32
+#: main path's blocks (32 since the mesh phase, some 40 s less; 8 since
+#: the dry-run phase, some 11 s less), its map held bit for bit to the
+#: timed run's partials of the same blocks
+BC_PROFILE_TASKS = 8
 #: threads of the local pool of the fused run: it fuses up to this many
 #: queued blocks into one ``execute_batch`` call (``run_irregular``)
 BC_LOCAL_WIDTH = 4
@@ -3607,10 +3622,6 @@ def phase_harness(dev) -> dict:
 
 # -- the model slice: gemma3-1b prefill, decode and serving ----------------------
 
-#: H100 SXM dense tensor-core peaks (NVIDIA data sheet, 700 W): bf16, and
-#: TF32, which a float32 product needs three passes of (``flash_bound``)
-PEAK_BF16_S = 989e12
-PEAK_TF32_S = 495e12
 #: the model path: gemma3-1b at full width; prefill_32k's sequence with the
 #: batch cut from 32 to 1, then DECODE_STEPS tokens on from its cache
 ARCH = "gemma3-1b"
@@ -3631,46 +3642,6 @@ F32_ATOL, F32_RTOL = 3e-5, 1e-4
 #: bf16's unit roundoff: rounding to bf16 moves a value by at most this
 #: share of its magnitude
 BF16_U = 2**-8
-
-
-def live_pairs(sq: int, skv: int, causal: bool, window) -> int:
-    """(query, key) pairs one head attends to under the masks."""
-    import numpy as np
-    i = np.arange(sq, dtype=np.int64)
-    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
-    hi = np.minimum(i, skv - 1) if causal else np.full_like(i, skv - 1)
-    return int(np.maximum(0, hi - lo + 1).sum())
-
-
-def _product_s(flops: float, dtype) -> float:
-    """Least seconds for a product of ``flops`` whose operands are of
-    ``dtype``, kept to that type's accuracy.  bf16 runs at the bf16
-    tensor-core rate.  A float32 product takes three TF32 passes (hi.hi +
-    hi.lo + lo.hi of each operand split into two TF32 values): one pass keeps
-    10 of float32's 23 mantissa bits and misses the float32 tolerance
-    (``tests/test_torch_flash_attention.py`` holds both), and three passes at
-    495 TFLOP/s still beat the CUDA cores' 67."""
-    import torch
-    if dtype == torch.bfloat16:
-        return flops / PEAK_BF16_S
-    return 3 * flops / PEAK_TF32_S
-
-
-def flash_bound(q2, k2, v2, causal: bool, window) -> tuple:
-    """Least card time for one flash call: the live pairs' products (2 * Dk
-    flops each for q.k^T in q's and k's type, 2 * Dv for p.v in v's type,
-    each at ``_product_s``'s rate, the two added), against q, k, v read and
-    o ([BHG, Sq, Dv], q's type) written once."""
-    bhg, sq, dk = q2.shape
-    skv, dv = v2.shape[1:]
-    pairs = bhg * live_pairs(sq, skv, causal, window)
-    t_ops = (_product_s(pairs * 2 * dk, q2.dtype) +
-             _product_s(pairs * 2 * dv, v2.dtype)) * 1e3
-    n_bytes = (q2.numel() + k2.numel() + bhg * sq * dv) * \
-        q2.element_size() + v2.numel() * v2.element_size()
-    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations", pairs * 2 * (dk + dv))
 
 
 def sdpa(q2, k2, v2, causal: bool, window):
@@ -4379,25 +4350,14 @@ JAMBA_ARCH = "jamba-v0.1-52b"
 #: the largest |output| (and |state|); they round alike and sum in the same
 #: tree, so they are bit-equal, which the check reports
 SCAN_REL_TOL = 1e-5
-#: float operations per state value and step, counted from the reference's
-#: step (an exp as one): selective_scan dt*A, exp, x*B, dt*bx, state*dA, +,
-#: state*C, +; wkv6 k*v, u*kv, +, r*(..), +, state*w, +
-SCAN_OPS = {"selective_scan": 8, "wkv6": 7}
-
-
-
-
 def scan_bound(name: str, args) -> tuple:
-    """Least card time for one scan: its operands read once and its
-    outputs written once (float32; the state both ways), against
-    ``SCAN_OPS`` float operations per state value and step at the float32
-    rate outside the tensor cores."""
-    *ops, state = args
-    seq = ops[0]                         # xi [B, S, Di] or r [B, S, H, hd]
-    per_step = ops[4].shape[-1]          # N, or hd
-    n_bytes = 4 * (sum(t.numel() for t in ops) + 2 * state.numel()
-                   + seq.numel())
-    return bound_ms(n_bytes, SCAN_OPS[name] * seq.numel() * per_step)
+    """Least card time for one call of scan op ``name`` (forward or
+    backward) on ``args``: its ``work`` formula (``kernels/{selective_scan,
+    wkv6}/ops.py``: bytes read and written once, float operations a state
+    value and step) at ``HBM_BW`` and ``PEAK_OPS_S``."""
+    from repro_torch.kernels.dispatch import get_kernel
+    flops, n_bytes = get_kernel(name).work(*args)
+    return bound_ms(n_bytes, flops)
 
 
 def check_scan(name: str, tap, label: str, reps: int = 3) -> dict:
@@ -4585,40 +4545,6 @@ MOE_TRAIN_STEPS = 3
 TRAIN_LM_STEPS = 100
 
 
-def flash_bwd_bound(q2, k2, v2, causal: bool, window) -> tuple:
-    """Least card time for one backward op: the five products over the live
-    pairs (q.k^T again, dV = p^T dO, dP = dO v^T, dQ = dS k, dK = dS^T q:
-    2 * (3 Dk + 2 Dv) flops a pair) at the dense bf16 rate, against q, k,
-    v, o, dO and lse read and dq, dk, dv written once."""
-    bhg, sq, dk = q2.shape
-    skv, dv = v2.shape[1:]
-    pairs = bhg * live_pairs(sq, skv, causal, window)
-    flops = 2 * pairs * (3 * dk + 2 * dv)
-    t_ops = flops / PEAK_BF16_S * 1e3
-    n_bytes = 2 * (q2.numel() * q2.element_size()
-                   + k2.numel() * k2.element_size()
-                   + v2.numel() * v2.element_size()) \
-        + 2 * bhg * sq * dv * q2.element_size() + bhg * sq * 4
-    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations", flops)
-
-
-def flash_bwd_floor(q2, k2, v2, causal: bool, window) -> tuple:
-    """The backward's floor with each product priced in the type it must
-    keep (``_product_s``): q.k^T, dQ = dS k and dK = dS^T q in q's and k's
-    type (three TF32 passes for float32), dP = dO v^T and dV = p^T dO in
-    v's; and the same with the dQ pass's recomputation of q.k^T and dP.
-    Returns (ms, ms with the recomputation); beside ``flash_bwd_bound``,
-    which prices all five at the bf16 rate."""
-    bhg, sq, dk = q2.shape
-    dv = v2.shape[2]
-    pairs = bhg * live_pairs(sq, k2.shape[1], causal, window)
-    qk = _product_s(pairs * 2 * dk, q2.dtype)
-    pv = _product_s(pairs * 2 * dv, v2.dtype)
-    return (3 * qk + 2 * pv) * 1e3, (4 * qk + 3 * pv) * 1e3
-
-
 def sdpa_backward_ms(q2, k2, v2, dout, causal: bool, window) -> float:
     """The library yardstick: autograd through
     ``scaled_dot_product_attention`` in bf16 (K and V repeated to the query
@@ -4769,8 +4695,11 @@ def compare_grads(cfg, params, batch, label: str = ARCH) -> dict:
     """``loss_fn`` and its gradients with the kernels (flash and the scans,
     forward and backward) against the plain versions forced, on the same
     weights."""
-    rec = grad_gap(model_grads(cfg, params, batch, None),
-                   model_grads(cfg, params, batch, "ref"))
+    t0 = time.monotonic()
+    kernel = model_grads(cfg, params, batch, None)
+    t1 = time.monotonic()
+    rec = grad_gap(kernel, model_grads(cfg, params, batch, "ref"))
+    rec["kernel_s"], rec["plain_s"] = t1 - t0, time.monotonic() - t1
     rec["batch"] = list(next(iter(batch.values())).shape)
     log(f"[train] {label} whole-model gradient {rec['batch']}, kernels vs "
         f"plain: loss "
@@ -4779,7 +4708,8 @@ def compare_grads(cfg, params, batch, label: str = ARCH) -> dict:
         f"norm {rec['grad_norm_kernel']:.6f} vs {rec['grad_norm_plain']:.6f} "
         f"({rec['grad_norm_rel_err']:.2e}, allowed {GRAD_NORM_RTOL}); lowest "
         f"leaf cosine {rec['min_cosine']:.6f} ({rec['min_cosine_leaf']}; "
-        f"allowed >= {GRAD_MIN_COS}) over {rec['leaves']} leaves")
+        f"allowed >= {GRAD_MIN_COS}) over {rec['leaves']} leaves; kernels "
+        f"{rec['kernel_s']:.1f} s, plain versions {rec['plain_s']:.1f} s")
     if not grad_gate_passes(rec):
         raise AssertionError(f"{label} whole-model gradient: {rec}")
     return rec
@@ -4915,7 +4845,7 @@ def train_kill_resume(dev, paths: dict) -> dict:
     rec["model_flops_per_step"] = train_flops(cfg, n_params, TRAIN_B,
                                               TRAIN_S)
     rec["mfu"] = rec["model_flops_per_step"] / rec["step_s_median"] \
-        / PEAK_BF16_S
+        / PEAK_FLOPS
     rec["n_params"] = n_params
     rec["launches_per_step"] = per_step
     log(f"[train] {ARCH} B={TRAIN_B} S={TRAIN_S}: losses (c) "
@@ -5018,21 +4948,16 @@ def _blocks_of(cfg, params):
 #: every gradient within this share of its largest |value| (all float32;
 #: the two sum in other orders over up to 64 terms and thousands of steps)
 SCAN_BWD_TOL = 1e-4
-#: float operations per state value and step of each backward, the step
-#: recomputed from the checkpoints included (an exp as one): wkv6_bwd k*v,
-#: P*w, + again, then v*G, do*P, G*P, k*G and their four sums, w*G + r*do;
-#: selective_scan_bwd dt*A, exp, x*B, dt*xB, P*e, + again, then dy*C + G',
-#: G*dt, G*Pe, and the dx, ddt, dA, dB, dC terms with their sums, G*e
-SCAN_BWD_OPS = {"selective_scan_bwd": 24, "wkv6_bwd": 14}
 #: the recurrent configs' whole-model gradient, kernels against the plain
 #: versions, at B 1 x 1,024 (the plain backward would take minutes at
 #: 4,096), with float32 weights: with the configs' bf16 the gradient is
 #: chaotic at float32 rounding's scale (tools/scan_grad_control.py: the
 #: plain backward times 1 + 2**-23 noise misses the gate against itself)
 GRAD_CHECK_S = 1024
-#: rwkv6-1.6b's layers in that check: 8 of its 24 at full width (the plain
-#: backward over all 24 takes some 85 s; training runs all 24 below)
-GRAD_CHECK_RWKV_LAYERS = 8
+#: rwkv6-1.6b's layers in that check: 4 of its 24 at full width (8 before
+#: the dry-run phase; the plain backward over all 24 takes some 85 s;
+#: training runs all 24 below)
+GRAD_CHECK_RWKV_LAYERS = 4
 #: rwkv6-1.6b trained at train_4k's 4,096, the batch cut from 256 to 4 (its
 #: float32 logits and their gradient are 4.3 GB each), 8 steps
 RWKV_TRAIN_B, RWKV_TRAIN_STEPS = 4, 8
@@ -5051,20 +4976,6 @@ def _scan_fns(name: str) -> tuple:
         selective_scan_bwd_cuda, selective_scan_bwd_ref, selective_scan_cuda)
     return selective_scan_cuda, selective_scan_bwd_cuda, \
         selective_scan_bwd_ref
-
-
-def scan_bwd_bound(name: str, args) -> tuple:
-    """Least card time for one scan backward: its operands, the forward's
-    checkpoints and the two gradients it starts from read once, its six
-    gradients written once (float32), against ``SCAN_BWD_OPS`` float
-    operations a state value and step at the float32 rate outside the
-    tensor cores (the bound of ``scan_bound``, extended)."""
-    *ops, ckpt, dout, dstate = args
-    per_step = ops[4].shape[-1]          # N (a [Di, N]) or hd (u [H, hd])
-    n_in = sum(t.numel() for t in (*ops, ckpt, dout, dstate))
-    n_out = sum(t.numel() for t in ops) + dstate.numel()
-    return bound_ms(4 * (n_in + n_out),
-                    SCAN_BWD_OPS[name] * ops[0].numel() * per_step)
 
 
 def check_scan_bwd(name: str, args, label: str, time_it: bool = True,
@@ -5120,7 +5031,7 @@ def check_scan_bwd(name: str, args, label: str, time_it: bool = True,
     if time_it:
         rec["ms"] = cuda_time_ms(lambda: bwd(*args), reps=reps)
         rec["plain_ms"] = plain_ms
-        rec["bound_ms"], rec["bound_by"] = scan_bwd_bound(name, args)
+        rec["bound_ms"], rec["bound_by"] = scan_bound(name, args)
         rec["library_ms"] = None   # no PyTorch call computes the recurrence
         log(f"[train] {name} {label}: kernel {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.1f} ms, bound {rec['bound_ms']:.4f} ms "
@@ -5241,7 +5152,7 @@ def train_rwkv(dev, paths: dict, tap) -> dict:
     rec["model_flops_per_step"] = train_flops(cfg, n_params, RWKV_TRAIN_B,
                                               TRAIN_S)
     rec["mfu"] = rec["model_flops_per_step"] / rec["step_s_median"] \
-        / PEAK_BF16_S
+        / PEAK_FLOPS
     log(f"[train] {RWKV_ARCH} B={RWKV_TRAIN_B} S={TRAIN_S}: losses "
         f"{[round(l, 4) for l in losses]}; step {rec['step_s_median']:.4f} "
         f"s (median, first excluded), {rec['tokens_per_s']:.1f} tokens/s, "
@@ -5591,9 +5502,53 @@ def mesh_train(dev, mesh, paths: dict, training: dict) -> dict:
     if not rec["replay_equal"] or mismatched:
         raise AssertionError(f"mesh replay {replay} against {losses}; "
                              f"restored leaves differing {mismatched[:5]}")
-    del params, opt, plan, got_params, got_opt
+    del got_params, got_opt
     shutil.rmtree(MESH_DIR, ignore_errors=True)
+    rec["counted_step"] = counted_mesh_step(
+        dev, plan, params, opt, data.batch(MESH_STEPS), per_step, paths)
+    del params, opt, plan
     torch.cuda.empty_cache()
+    return rec
+
+
+def counted_mesh_step(dev, plan, params, opt, batch, per_step: dict,
+                      paths: dict) -> dict:
+    """One more mesh step, untimed, counted op by op as it runs
+    (``benchlib.op_analysis.analyze_step``: flops, bytes, transcendentals,
+    each collective by kind, each kernel op by its work formula), with
+    the peak memory of the step alone (``max_memory_allocated`` from
+    ``reset_peak_memory_stats()``, nothing else of the phase live): what
+    phase 15's dry run predicts.  The batch is on the card before the
+    step, as the dry run's is."""
+    import torch
+    from repro_torch.benchlib.op_analysis import analyze_step
+    from repro_torch.benchlib.roofline import analysis_block
+    from repro_torch.launch.steps import batch_to
+    batch = batch_to(batch, dev)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cost, wall, _ = counted_path(
+        f"{ARCH} mesh step counted (phase 15)",
+        lambda: analyze_step(plan.step, params, opt, batch), per_step, paths)
+    loss = float(cost.result[2]["loss"])
+    cost.result = None
+    rec = {"analysis": analysis_block(cost),
+           "argument_bytes": cost.argument_bytes,
+           "counted_peak_bytes": cost.peak_bytes,
+           "memory_allocated_before": before,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "loss": loss, "wall_s": wall, "op_records": len(cost.ops)}
+    a = rec["analysis"]
+    log(f"[mesh] one more step counted op by op ({wall:.2f} s with the "
+        f"counter): {a['flops_per_device']:.6e} flops, "
+        f"{a['bytes_per_device']:.6e} bytes, collectives {a['counts']}, "
+        f"kernels {a['kernels']}; max_memory_allocated "
+        f"{rec['max_memory_allocated'] / 1e9:.3f} GB (allocated before it "
+        f"{before / 1e9:.3f} GB, its arguments "
+        f"{cost.argument_bytes / 1e9:.3f} GB)")
     return rec
 
 
@@ -5713,6 +5668,129 @@ def phase_mesh(dev, training: dict) -> dict:
         dist.destroy_process_group()
     out["seconds"] = time.monotonic() - t_phase
     log(f"[mesh] phase: {out['seconds']:.1f} s")
+    return out
+
+
+# -- the dry run held to the card ------------------------------------------------
+
+#: phase 15's dry runs write their records here
+DRYRUN_DIR = ROOT / "build" / "dryrun"
+#: the collectives one gemma3-1b mesh step runs at a world of 1 as the
+#: trace of ``tools/mesh_step_profile.py`` counts them: all-gathers,
+#: reduce-scatters, all-reduces, 674 in all
+MESH_STEP_COLLECTIVES = {"all_gather": 306, "reduce_scatter": 154,
+                         "all_reduce": 214}
+#: the dry run's peak (this rank's arguments + temp) against the step's
+#: max_memory_allocated
+PEAK_REL_TOL = 0.15
+
+
+def start_dry_runs():
+    """Phase 15's two dry runs, started right after the build in processes
+    of their own: they need no card, and run on the host's spare cores
+    beside phases 3 and 6, whose times are the card's (CUDA events); the
+    run waits for them (``wait_dry_runs``) before the host-bound phases.
+    The dry run of phase 14's counted step (gemma3-1b, 2 x 4,096, a 1 x 1
+    mesh, FSDP, full remat), and the production cell gemma3-1b
+    ``train_4k`` on pod256 (a fake world of 256 on this host's torch).
+    Returns the function that waits for their records."""
+    import shutil
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import start_cells
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    return start_cells([
+        dict(arch=ARCH, shape_name="train_4k", mesh_shape=(1, 1),
+             shape=ShapeSpec("train_4k", TRAIN_S, TRAIN_B, "train"),
+             out_dir=str(DRYRUN_DIR / "world1")),
+        dict(arch=ARCH, shape_name="train_4k",
+             out_dir=str(DRYRUN_DIR / "pod256"))], jobs=2)
+
+
+def wait_dry_runs(dry_runs) -> dict:
+    """The dry runs' records, and how long the run waited for them."""
+    t0 = time.monotonic()
+    world1, pod = dry_runs()
+    waited = time.monotonic() - t0
+    log(f"[roofline] the dry runs ended ({world1['process_s']:.1f} and "
+        f"{pod['process_s']:.1f} s in their processes); waited {waited:.1f} s"
+        f" for them after phase 6")
+    return {"world1": world1, "pod256": pod, "waited_s": waited}
+
+
+def phase_roofline(card: str, mesh: dict, dry: dict) -> dict:
+    """Phase 15: the dry run (``launch/dryrun.py``) held to the card.  The
+    dry run of phase 14's counted step (``start_dry_runs``) must equal the
+    real step's count exactly (the same program, traced twice: on meta
+    tensors over a fake process group, and on the card over NCCL), and its
+    peak (arguments + temp) be within ``PEAK_REL_TOL`` of the step's
+    ``max_memory_allocated``; the production cell must end "ok".  The
+    roofline terms (datasheet peaks, ``repro_torch.benchlib``) are printed
+    beside phase 14's measured median step, the collectives beside
+    ``MESH_STEP_COLLECTIVES``."""
+    t_phase = time.monotonic()
+    real = mesh["train"]["counted_step"]
+    world1, pod, waited_s = dry["world1"], dry["pod256"], dry["waited_s"]
+    for rec in (world1, pod):
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {rec['arch']}/{rec['shape']}/"
+                                 f"{rec.get('mesh')}: {rec.get('error')}")
+    got, want = world1["analysis"], real["analysis"]
+    if got != want:
+        raise AssertionError("dry run against the counted step: " + "; ".join(
+            f"{k} {got.get(k)} != {want[k]}" for k in want
+            if got.get(k) != want[k]))
+    mem = world1["memory_analysis"]
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    measured = real["max_memory_allocated"]
+    rel = abs(predicted - measured) / measured
+    log(f"[roofline] {card}: the dry run of {ARCH}'s mesh step (2 x "
+        f"{TRAIN_S}, 1 x 1, fsdp) equals the step counted on the card: "
+        f"{got['flops_per_device']:.6e} flops, "
+        f"{got['bytes_per_device']:.6e} bytes, "
+        f"{got['transcendentals']:.6e} transcendentals, kernels "
+        f"{got['kernels']}, collectives {got['counts']}, link bytes "
+        f"{got['link_bytes']:.6e}")
+    log(f"[roofline] {card}: predicted peak {predicted / 1e9:.3f} GB "
+        f"(arguments {mem['argument_size_in_bytes'] / 1e9:.3f} + temp "
+        f"{mem['temp_size_in_bytes'] / 1e9:.3f}) against "
+        f"max_memory_allocated {measured / 1e9:.3f} GB over the step: "
+        f"{rel:.4f} off (allowed {PEAK_REL_TOL})")
+    if rel > PEAK_REL_TOL:
+        raise AssertionError(f"dry-run peak {predicted} against {measured}")
+    counts = world1["analysis"]["counts"]
+    log(f"[roofline] collectives a step: {counts} "
+        f"({sum(counts.values())}) beside the profiled trace's "
+        f"{MESH_STEP_COLLECTIVES} ({sum(MESH_STEP_COLLECTIVES.values())}); "
+        f"equal: {counts == MESH_STEP_COLLECTIVES}")
+    a = world1["analysis"]
+    step_s = mesh["train"]["step_s_median"]
+    top = max(a["compute_s"], a["memory_s"], a["collective_s"])
+    log(f"[roofline] {card}: roofline terms of the step: compute "
+        f"{a['compute_s']:.4f} s, memory {a['memory_s']:.4f} s, collective "
+        f"{a['collective_s']:.4f} s -> {a['dominant']}-bound; phase 14's "
+        f"median step {step_s:.4f} s ({step_s / top:.2f}x the largest)")
+    b = pod["analysis"]
+    log(f"[roofline] production cell {ARCH} train_4k on pod256 (a fake "
+        f"world of 256, this host's torch): ok in {pod['total_s']} s; "
+        f"compute {b['compute_s']:.4f} s, memory {b['memory_s']:.4f} s, "
+        f"collective {b['collective_s']:.4f} s -> {b['dominant']}-bound "
+        f"(H100 datasheet peaks); replicated layers "
+        f"{pod['replicated_layers']}")
+    out = {"card": card, "world1": world1, "pod256": pod,
+           "counted_step": real, "equal": True,
+           "predicted_peak_bytes": predicted,
+           "max_memory_allocated": measured, "peak_rel_err": rel,
+           "collectives_traced": MESH_STEP_COLLECTIVES,
+           "collectives_equal_traced": counts == MESH_STEP_COLLECTIVES,
+           "step_s_median": step_s, "waited_for_dry_runs_s": waited_s,
+           "dry_runs_process_s": [world1["process_s"], pod["process_s"]]}
+    out["seconds"] = time.monotonic() - t_phase + real["wall_s"]
+    out["seconds"] += waited_s
+    log(f"[roofline] phase: {out['seconds']:.1f} s on the run's path (the "
+        f"counted step {real['wall_s']:.1f} s, in phase 14; {waited_s:.1f} s "
+        f"waiting for the dry runs after phase 6, which ran "
+        f"{world1['process_s']:.1f} and {pod['process_s']:.1f} s in their "
+        f"processes beside phases 3 and 6)")
     return out
 
 
@@ -5953,11 +6031,13 @@ def main() -> int:
     t_start = time.monotonic()
     card = phase_environment()
     build = phase_build()
+    dry_runs = start_dry_runs()
     sha1 = build["sha1_sass"]
     kernels = {"uts_hash": phase_kernel_uts(dev, sha1),
                "uts_expand": phase_kernel_uts_expand(dev, sha1),
                "mandelbrot": phase_kernel_mandelbrot(dev)}
     flash_fixed = phase_flash_fixed(dev)
+    dry = wait_dry_runs(dry_runs)
     uts = phase_uts(dev, UTS_DEPTH)
     ms = phase_ms(dev, MS_SIDE, MS_DWELL, sha1["sm_clock_hz"])
     paper = phase_ms_paper_size(dev)
@@ -5969,6 +6049,7 @@ def main() -> int:
     recurrent = phase_recurrent_families(dev)
     training = phase_training(dev)
     mesh = phase_mesh(dev, training)
+    roofline = phase_roofline(card, mesh, dry)
     # run_path has already required a launch on every path that runs a
     # hand kernel
     kernels["uts_expand"]["launches_by_path"] = uts["launches"]
@@ -6133,7 +6214,7 @@ def main() -> int:
               "ms_paper_size": paper, "bc": bc, "chaos": chaos,
               "harness": harness, "model": model, "families": families,
               "recurrent": recurrent, "training": training, "mesh": mesh,
-              "leftover_processes_stopped": leftover}
+              "roofline": roofline, "leftover_processes_stopped": leftover}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"[done] {report['seconds']:.1f} s; report in "

@@ -16,7 +16,11 @@ original is built on ``jax.jit``).  The surface is the same:
     ``cuda`` for CUDA tensors, ``ref`` for CPU tensors.  ``"ref"`` may be
     forced on CUDA tensors to compare a kernel with its plain version;
     ``"cuda"`` on CPU tensors raises.  There is no fallback: a CUDA body
-    that fails raises.
+    that fails raises.  Meta tensors (the dry run's, which carry shapes
+    and no data) resolve to ``cuda`` too, so a traced step takes the
+    card's branches; a CUDA body given meta or fake operands
+    (:func:`trace_only`) allocates its outputs, shows the op to the active
+    counters and returns without building or launching its kernel.
   - **bucket padding**: every elastic axis is padded up to the next
     power of two >= the op's floor, with the same floors and pad
     constants as the reference package, so the set of distinct launch
@@ -26,7 +30,10 @@ original is built on ``jax.jit``).  The surface is the same:
   - **unpadding** of the output back to the caller's sizes;
   - a plain integer **launch count** per op (:func:`launches`), which
     each CUDA body bumps through :func:`record_launch` right where it
-    launches its kernel, so a run can show it went through the kernel.
+    launches its kernel, so a run can show it went through the kernel;
+    the same call shows the op and its operands to the counters of
+    ``benchlib.op_analysis`` (:func:`kernel_observers`), which count its
+    work by the op's ``work`` formula.
 """
 from __future__ import annotations
 
@@ -40,21 +47,26 @@ __all__ = [
     "KernelOp", "register_kernel", "get_kernel", "registered_kernels",
     "dispatch", "bucket", "resolve_backend",
     "compile_log", "reset_compile_log", "estimate_cost",
-    "launches", "record_launch", "reset_launches",
+    "launches", "record_launch", "reset_launches", "traced", "trace_only",
+    "kernel_observers", "in_plain_version",
 ]
 
 BACKENDS = ("cuda", "ref")
+#: device types whose operands take the hand kernel's branch: the card's,
+#: and the dry run's meta tensors (which launch nothing, :func:`trace_only`)
+_CARD_TYPES = ("cuda", "meta")
 
 
 def resolve_backend(backend: Optional[str], device: torch.device) -> str:
-    """Canonical backend; ``None`` = ``cuda`` on a CUDA device, else ``ref``."""
+    """Canonical backend; ``None`` = ``cuda`` on a CUDA (or meta) device,
+    else ``ref``."""
     if backend is None:
-        return "cuda" if device.type == "cuda" else "ref"
+        return "cuda" if device.type in _CARD_TYPES else "ref"
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}; expected one of "
             f"{', '.join(BACKENDS)}")
-    if backend == "cuda" and device.type != "cuda":
+    if backend == "cuda" and device.type not in _CARD_TYPES:
         raise ValueError(
             f"backend 'cuda' needs CUDA tensors, got tensors on {device}")
     return backend
@@ -96,6 +108,11 @@ class KernelOp:
     bucket_floor: int = 128
     #: a-priori work estimate from the *unpadded* operands
     cost_hint: Callable[..., float] = field(default=lambda *args: 1.0)
+    #: ``work(*operands, **static) -> (flops, bytes)``: the op's work from
+    #: its operands' shapes alone, the same whatever implements it (the
+    #: dry run's count and the kernel's bound); None where the work
+    #: depends on the data
+    work: Optional[Callable[..., Tuple[float, float]]] = None
 
     def __post_init__(self) -> None:
         if self.pad_values and len(self.pad_values) != len(self.arg_dims):
@@ -114,6 +131,10 @@ _COMPILE_LOG_CAP = 4096
 # concurrently, so the read-modify-write holds a lock
 _LAUNCHES: Dict[str, int] = {}
 _LAUNCHES_LOCK = threading.Lock()
+# the counters shown every kernel op (``kernel_observers``), and how deep
+# in plain versions run under them the program is
+_OBSERVERS: List[Callable[..., None]] = []
+_PLAIN_DEPTH = 0
 
 
 def register_kernel(op: KernelOp) -> KernelOp:
@@ -178,10 +199,50 @@ def launches(name: str) -> int:
     return _LAUNCHES.get(name, 0)
 
 
-def record_launch(name: str) -> None:
-    """Count one kernel launch of ``name`` (called by its CUDA body)."""
+def kernel_observers() -> List[Callable[..., None]]:
+    """The active counters, each called as ``(name, operands, static)``
+    for every kernel op a CUDA body launches or traces (pushed and popped
+    by ``benchlib.op_analysis``)."""
+    return _OBSERVERS
+
+
+def in_plain_version() -> int:
+    """How many plain versions run under a counter enclose this point
+    (the counters skip their ops: each counts as its kernel op)."""
+    return _PLAIN_DEPTH
+
+
+def _observe(name: str, operands: tuple, static: dict) -> None:
+    for obs in list(_OBSERVERS):
+        obs(name, operands, static)
+
+
+def record_launch(name: str, *operands: Any, **static: Any) -> None:
+    """Count one kernel launch of ``name`` (called by its CUDA body, with
+    the operands and static arguments its ``work`` formula reads)."""
     with _LAUNCHES_LOCK:
         _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+    if _OBSERVERS:
+        _observe(name, operands, static)
+
+
+def traced(*tensors: Any) -> bool:
+    """Whether any of ``tensors`` is a meta or fake tensor: shapes
+    without data, as a dry run traces a step."""
+    from torch._subclasses.fake_tensor import is_fake
+    return any(isinstance(t, torch.Tensor) and (t.is_meta or is_fake(t))
+               for t in tensors)
+
+
+def trace_only(name: str, *operands: Any, **static: Any) -> bool:
+    """Called by a CUDA body once its outputs are allocated.  For meta or
+    fake operands: show the op to the counters (no launch is counted) and
+    return True, and the body returns its outputs without building or
+    launching its kernel.  For real tensors False: the body launches."""
+    if not traced(*operands):
+        return False
+    _observe(name, operands, static)
+    return True
 
 
 def reset_launches(name: Optional[str] = None) -> None:
@@ -251,7 +312,17 @@ def dispatch(op: Union[str, KernelOp], *args: torch.Tensor,
         log.add((backend, skey, sig))
 
     body = op.cuda_body if backend == "cuda" else op.reference_body
-    out = body(*padded, **static)
+    if backend == "ref" and _OBSERVERS:
+        # counted as the kernel op, by its work formula; not its plain ops
+        _observe(op.name, tuple(padded), static)
+        global _PLAIN_DEPTH
+        _PLAIN_DEPTH += 1
+        try:
+            out = body(*padded, **static)
+        finally:
+            _PLAIN_DEPTH -= 1
+    else:
+        out = body(*padded, **static)
 
     # -- slice the padding back off ---------------------------------------
     if op.out_dims:

@@ -43,14 +43,17 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ... import benchlib
 from .. import _build
-from ..dispatch import KernelOp, dispatch, record_launch, register_kernel
+from ..dispatch import (KernelOp, dispatch, record_launch, register_kernel,
+                        trace_only, traced)
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = ["flash_attention_fused", "flash_attention_ref",
            "flash_attention_cuda", "flash_attention_bwd_cuda",
            "flash_attention_bwd_ref", "FlashAttention", "kernel_tiles",
-           "padded_head_dim"]
+           "padded_head_dim", "flash_fwd_work", "flash_bwd_work",
+           "flash_bound", "flash_bwd_bound", "flash_bwd_floor"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: (q and k, v) dtype pairs the kernel is built for; a bf16 model feeds the
@@ -104,7 +107,9 @@ def _check_operands(what: str, q: torch.Tensor, k: torch.Tensor,
                     softcap: Optional[float]) -> None:
     """Device, dtypes, shapes, alignment and options both kernels take."""
     dev = q.device
-    if dev.type != "cuda" or k.device != dev or v.device != dev:
+    fake = traced(q, k, v)
+    if (dev.type != "cuda" and not fake) or k.device != dev or \
+            v.device != dev:
         raise ValueError(
             f"{what}: CUDA tensors on one device expected, got "
             f"{q.device}, {k.device}, {v.device}")
@@ -132,7 +137,7 @@ def _check_operands(what: str, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{what}: sequence {max(sq, skv)} "
                          f"beyond the kernel's 32-bit positions")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous() or (not fake and t.data_ptr() % 16):
             raise ValueError(
                 f"{what}: {name} must be contiguous and "
                 f"16-byte aligned")
@@ -162,6 +167,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse = torch.full((bhg, sq), float("inf"), dtype=torch.float32,
                          device=dev) if skv == 0 else torch.empty(
             (bhg, sq), dtype=torch.float32, device=dev)
+    static = dict(causal=causal, window=window, softcap=softcap)
+    if trace_only("flash_attention_fwd", q, k, v, **static):
+        return (out, lse) if return_lse else out
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -177,7 +185,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"flash_attention kernel launch failed: "
             f"{lib.flash_attention_error_string(err).decode()} "
             f"(cudaError {err})")
-    record_launch("flash_attention_fwd")
+    record_launch("flash_attention_fwd", q, k, v, **static)
     return (out, lse) if return_lse else out
 
 
@@ -194,12 +202,13 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     _check_operands("flash_attention_bwd_cuda", q, k, v, window, softcap)
     bhg, sq, d = q.shape
     bhkv, skv, _ = k.shape
+    fake = traced(q, k, v, o, dout, lse)
     for name, t, dtype, shape in (("o", o, q.dtype, q.shape),
                                   ("dout", dout, q.dtype, q.shape),
                                   ("lse", lse, torch.float32, (bhg, sq))):
         if t.device != q.device or t.dtype != dtype or \
                 tuple(t.shape) != tuple(shape) or not t.is_contiguous() \
-                or t.data_ptr() % 16:
+                or (not fake and t.data_ptr() % 16):
             raise ValueError(
                 f"flash_attention_bwd_cuda: {name} must be a contiguous, "
                 f"16-byte aligned {dtype} {tuple(shape)} tensor on "
@@ -207,6 +216,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if sq == 0 or skv == 0:
         raise ValueError("flash_attention_bwd_cuda: empty sequence")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    static = dict(causal=causal, window=window, softcap=softcap)
+    if trace_only("flash_attention_bwd", q, k, v, o, dout, lse, **static):
+        return dq, dk, dv
     lib = _bwd_lib()
     # Delta, dO rounded to v's dtype (float32 q with bf16 v) and, with GQA,
     # the float32 partial sums of dK and dV over the query heads
@@ -227,8 +239,82 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
             f"flash_attention_bwd kernel launch failed: "
             f"{lib.flash_attention_bwd_error_string(err).decode()} "
             f"(cudaError {err})")
-    record_launch("flash_attention_bwd")
+    record_launch("flash_attention_bwd", q, k, v, o, dout, lse, **static)
     return dq, dk, dv
+
+
+def _pairs(q2, k2, causal: bool, window) -> int:
+    """Live (query, key) pairs of a call, over all its query heads."""
+    return q2.shape[0] * benchlib.live_pairs(q2.shape[1], k2.shape[1],
+                                             causal, window)
+
+
+def flash_fwd_work(q2, k2, v2, *, causal: bool = True, window=None,
+                   **_static) -> tuple:
+    """(flops, bytes) of one forward call: 2 * (Dk + Dv) flops a live pair
+    (q.k^T and p.v), against q, k, v read and o ([BHG, Sq, Dv], q's type)
+    written once."""
+    bhg, sq, dk = q2.shape
+    dv = v2.shape[2]
+    flops = _pairs(q2, k2, causal, window) * 2 * (dk + dv)
+    n_bytes = (q2.numel() + k2.numel() + bhg * sq * dv) * \
+        q2.element_size() + v2.numel() * v2.element_size()
+    return float(flops), float(n_bytes)
+
+
+def flash_bound(q2, k2, v2, causal: bool, window) -> tuple:
+    """Least card time for one forward call -> (ms, "bytes" or
+    "operations", flops): :func:`flash_fwd_work`'s bytes at ``HBM_BW``
+    against its two products, each at ``benchlib.product_s``'s rate for
+    its operands' type (q.k^T in q's and k's, p.v in v's), added."""
+    dk, dv = q2.shape[2], v2.shape[2]
+    pairs = _pairs(q2, k2, causal, window)
+    flops, n_bytes = flash_fwd_work(q2, k2, v2, causal=causal, window=window)
+    t_ops = (benchlib.product_s(pairs * 2 * dk, q2.dtype) +
+             benchlib.product_s(pairs * 2 * dv, v2.dtype)) * 1e3
+    t_bytes = n_bytes / benchlib.HBM_BW * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", int(flops))
+
+
+def flash_bwd_work(q2, k2, v2, *rest, causal: bool = True, window=None,
+                   **_static) -> tuple:
+    """(flops, bytes) of one backward call: the five products over the live
+    pairs (q.k^T again, dV = p^T dO, dP = dO v^T, dQ = dS k, dK = dS^T q:
+    2 * (3 Dk + 2 Dv) flops a pair), against q, k, v, o, dO and lse read
+    and dq, dk, dv written once."""
+    bhg, sq, dk = q2.shape
+    dv = v2.shape[2]
+    flops = 2 * _pairs(q2, k2, causal, window) * (3 * dk + 2 * dv)
+    n_bytes = 2 * (q2.numel() * q2.element_size()
+                   + k2.numel() * k2.element_size()
+                   + v2.numel() * v2.element_size()) \
+        + 2 * bhg * sq * dv * q2.element_size() + bhg * sq * 4
+    return float(flops), float(n_bytes)
+
+
+def flash_bwd_bound(q2, k2, v2, causal: bool, window) -> tuple:
+    """Least card time for one backward call -> (ms, "bytes" or
+    "operations", flops): :func:`flash_bwd_work` with all five products at
+    the dense bf16 rate."""
+    flops, n_bytes = flash_bwd_work(q2, k2, v2, causal=causal,
+                                    window=window)
+    ms, by = benchlib.bound_ms(n_bytes, flops, benchlib.PEAK_FLOPS)
+    return ms, by, int(flops)
+
+
+def flash_bwd_floor(q2, k2, v2, causal: bool, window) -> tuple:
+    """The backward's floor with each product priced in the type it must
+    keep (``benchlib.product_s``): q.k^T, dQ = dS k and dK = dS^T q in q's
+    and k's type (three TF32 passes for float32), dP = dO v^T and dV = p^T
+    dO in v's; and the same with the dQ pass's recomputation of q.k^T and
+    dP.  Returns (ms, ms with the recomputation); beside
+    :func:`flash_bwd_bound`, which prices all five at the bf16 rate."""
+    dk, dv = q2.shape[2], v2.shape[2]
+    pairs = _pairs(q2, k2, causal, window)
+    qk = benchlib.product_s(pairs * 2 * dk, q2.dtype)
+    pv = benchlib.product_s(pairs * 2 * dv, v2.dtype)
+    return (3 * qk + 2 * pv) * 1e3, (4 * qk + 3 * pv) * 1e3
 
 
 register_kernel(KernelOp(
@@ -242,6 +328,7 @@ register_kernel(KernelOp(
     bucket_floor=1,
     cost_hint=lambda q2, k2, v2: float(
         q2.shape[0] * q2.shape[1] * k2.shape[1]),
+    work=flash_fwd_work,
 ))
 
 
@@ -255,6 +342,7 @@ register_kernel(KernelOp(
     bucket_floor=1,
     cost_hint=lambda q2, k2, *rest: float(
         q2.shape[0] * q2.shape[1] * k2.shape[1]),
+    work=flash_bwd_work,
 ))
 
 

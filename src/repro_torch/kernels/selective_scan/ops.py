@@ -28,13 +28,15 @@ import torch
 
 from .. import _build
 from ..dispatch import (KernelOp, dispatch, record_launch, register_kernel,
-                        resolve_backend)
+                        resolve_backend, trace_only, traced)
 from .ref import selective_scan_bwd_ref, selective_scan_ref
 
 __all__ = ["selective_scan", "selective_scan_cuda", "selective_scan_ref",
            "selective_scan_bwd_cuda", "selective_scan_bwd_ref",
            "selective_scan_bwd_plan",
-           "SelectiveScan", "STATE_SIZES", "CKPT_EVERY"]
+           "SelectiveScan", "STATE_SIZES", "CKPT_EVERY",
+           "selective_scan_work", "selective_scan_bwd_work", "OPS_A_STEP",
+           "BWD_OPS_A_STEP"]
 
 #: state sizes N the kernel is built for
 STATE_SIZES = (4, 8, 16)
@@ -108,7 +110,7 @@ def _check(xi, dt, bm, cm, a, state) -> tuple:
             raise TypeError(f"selective_scan: {what} must be float32, got "
                             f"{t.dtype}")
     dev = xi.device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not traced(xi):
         raise ValueError(f"selective_scan: CUDA tensors expected, got {dev}")
     for what, t in named:
         if t.device != dev:
@@ -149,6 +151,9 @@ def selective_scan_cuda(xi: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     y = torch.empty((b, s, di), dtype=torch.float32, device=xi.device)
     ckpt = torch.empty((b, di, checkpoint_count(s), n), dtype=torch.float32,
                        device=xi.device) if checkpoints else None
+    if trace_only("selective_scan", xi, dt, bm, cm, a, state,
+                  checkpoints=checkpoints):
+        return (y, state, ckpt) if checkpoints else (y, state)
     lib = _lib()
     with torch.cuda.device(xi.device):
         stream = torch.cuda.current_stream(xi.device).cuda_stream
@@ -161,7 +166,8 @@ def selective_scan_cuda(xi: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
             f"selective_scan kernel launch failed: "
             f"{lib.selective_scan_error_string(err).decode()} "
             f"(cudaError {err})")
-    record_launch("selective_scan")
+    record_launch("selective_scan", xi, dt, bm, cm, a, state,
+                  checkpoints=checkpoints)
     return (y, state, ckpt) if checkpoints else (y, state)
 
 
@@ -185,6 +191,8 @@ def selective_scan_bwd_cuda(xi: torch.Tensor, dt: torch.Tensor,
                              f"on {t.device}")
     dxi, ddt, dbm, dcm, da, dstate0 = (torch.empty_like(t) for t in (
         xi, dt, bm, cm, a, dstate))
+    if trace_only("selective_scan_bwd", xi, dt, bm, cm, a, ckpt, dy, dstate):
+        return dxi, ddt, dbm, dcm, da, dstate0
     lib = _bwd_lib()
     work = torch.empty(lib.selective_scan_bwd_workspace(b, s, di, n),
                        dtype=torch.uint8, device=xi.device)
@@ -201,7 +209,7 @@ def selective_scan_bwd_cuda(xi: torch.Tensor, dt: torch.Tensor,
             f"selective_scan_bwd kernel launch failed: "
             f"{lib.selective_scan_bwd_error_string(err).decode()} "
             f"(cudaError {err})")
-    record_launch("selective_scan_bwd")
+    record_launch("selective_scan_bwd", xi, dt, bm, cm, a, ckpt, dy, dstate)
     return dxi, ddt, dbm, dcm, da, dstate0
 
 
@@ -210,11 +218,46 @@ def _cost(xi, dt, bm, cm, a, *rest) -> float:
     return float(xi.numel() * a.shape[-1])
 
 
+#: float operations a state value and step, counted from the reference's
+#: step (an exp as one): dt*A, exp, x*B, dt*bx, state*dA, +, state*C, +
+OPS_A_STEP = 8
+#: the same for the backward, the step recomputed from the checkpoints
+#: included: dt*A, exp, x*B, dt*xB, P*e, + again, then dy*C + G', G*dt,
+#: G*Pe, and the dx, ddt, dA, dB, dC terms with their sums, G*e
+BWD_OPS_A_STEP = 24
+
+
+def selective_scan_work(*args, **_static) -> tuple:
+    """(flops, bytes) of one forward call: its operands read once and its
+    outputs written once (float32; the state both ways), against
+    ``OPS_A_STEP`` float operations a state value and step."""
+    *ops, state = args
+    seq = ops[0]
+    per_step = ops[4].shape[-1]
+    n_bytes = 4 * (sum(t.numel() for t in ops) + 2 * state.numel()
+                   + seq.numel())
+    return float(OPS_A_STEP * seq.numel() * per_step), float(n_bytes)
+
+
+def selective_scan_bwd_work(*args, **_static) -> tuple:
+    """(flops, bytes) of one backward call: its operands, the forward's
+    checkpoints and the two gradients it starts from read once, its six
+    gradients written once (float32), against ``BWD_OPS_A_STEP`` float
+    operations a state value and step."""
+    *ops, ckpt, dout, dstate = args
+    per_step = ops[4].shape[-1]
+    n_in = sum(t.numel() for t in (*ops, ckpt, dout, dstate))
+    n_out = sum(t.numel() for t in ops) + dstate.numel()
+    return (float(BWD_OPS_A_STEP * ops[0].numel() * per_step),
+            float(4 * (n_in + n_out)))
+
+
 register_kernel(KernelOp(
     name="selective_scan",
     cuda_body=selective_scan_cuda,
     reference_body=selective_scan_ref,
     cost_hint=_cost,
+    work=selective_scan_work,
 ))
 
 
@@ -223,6 +266,7 @@ register_kernel(KernelOp(
     cuda_body=selective_scan_bwd_cuda,
     reference_body=selective_scan_bwd_ref,
     cost_hint=_cost,
+    work=selective_scan_bwd_work,
 ))
 
 

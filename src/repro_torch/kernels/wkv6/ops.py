@@ -28,11 +28,13 @@ import torch
 
 from .. import _build
 from ..dispatch import (KernelOp, dispatch, record_launch, register_kernel,
-                        resolve_backend)
+                        resolve_backend, trace_only, traced)
 from .ref import wkv6_bwd_ref, wkv6_ref
 
 __all__ = ["wkv6", "wkv6_cuda", "wkv6_ref", "wkv6_bwd_cuda", "wkv6_bwd_ref",
-           "wkv6_bwd_plan", "WKV6", "HEAD_SIZES", "CKPT_EVERY"]
+           "wkv6_bwd_plan", "WKV6", "HEAD_SIZES", "CKPT_EVERY",
+           "wkv6_work", "wkv6_bwd_work", "OPS_A_STEP",
+           "BWD_OPS_A_STEP"]
 
 #: head sizes the kernel is built for: rwkv6-1.6b's and its smoke config's
 HEAD_SIZES = (16, 64)
@@ -103,7 +105,7 @@ def _check(r, k, v, w, u, state) -> tuple:
             raise TypeError(f"wkv6: {what} must be float32, got "
                             f"{t.dtype}")
     dev = r.device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not traced(r):
         raise ValueError(f"wkv6: CUDA tensors expected, got {dev}")
     for what, t in named:
         if t.device != dev:
@@ -140,6 +142,8 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ckpt = torch.empty((b, h, checkpoint_count(s), hd, hd),
                        dtype=torch.float32, device=r.device) \
         if checkpoints else None
+    if trace_only("wkv6", r, k, v, w, u, state, checkpoints=checkpoints):
+        return (o, state, ckpt) if checkpoints else (o, state)
     lib = _lib()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
@@ -152,7 +156,7 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"wkv6 kernel launch failed: "
                            f"{lib.wkv6_error_string(err).decode()} "
                            f"(cudaError {err})")
-    record_launch("wkv6")
+    record_launch("wkv6", r, k, v, w, u, state, checkpoints=checkpoints)
     return (o, state, ckpt) if checkpoints else (o, state)
 
 
@@ -172,11 +176,13 @@ def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"wkv6_bwd: {what} must be a contiguous float32 "
                              f"{shape} tensor on {r.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    if ckpt.data_ptr() % 16:
+    if not traced(ckpt) and ckpt.data_ptr() % 16:
         raise ValueError("wkv6_bwd: ckpt must be 16-byte aligned")
     dr, dk, dv, dw = (torch.empty_like(t) for t in (r, k, v, w))
     du = torch.empty_like(u)
     dstate0 = torch.empty_like(dstate)
+    if trace_only("wkv6_bwd", r, k, v, w, u, ckpt, do, dstate):
+        return dr, dk, dv, dw, du, dstate0
     lib = _bwd_lib()
     work = torch.empty(lib.wkv6_bwd_workspace(b, s, h, hd),
                        dtype=torch.uint8, device=r.device)
@@ -192,7 +198,7 @@ def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"wkv6_bwd kernel launch failed: "
                            f"{lib.wkv6_bwd_error_string(err).decode()} "
                            f"(cudaError {err})")
-    record_launch("wkv6_bwd")
+    record_launch("wkv6_bwd", r, k, v, w, u, ckpt, do, dstate)
     return dr, dk, dv, dw, du, dstate0
 
 
@@ -201,11 +207,46 @@ def _cost(r, *rest) -> float:
     return float(r.numel() * r.shape[-1])
 
 
+#: float operations a state value and step, counted from the reference's
+#: step (an exp as one): k*v, u*kv, +, r*(..), +, state*w, +
+OPS_A_STEP = 7
+#: the same for the backward, the step recomputed from the checkpoints
+#: included: k*v, P*w, + again, then v*G, do*P, G*P, k*G and their four
+#: sums, w*G + r*do
+BWD_OPS_A_STEP = 14
+
+
+def wkv6_work(*args, **_static) -> tuple:
+    """(flops, bytes) of one forward call: its operands read once and its
+    outputs written once (float32; the state both ways), against
+    ``OPS_A_STEP`` float operations a state value and step."""
+    *ops, state = args
+    seq = ops[0]
+    per_step = ops[4].shape[-1]
+    n_bytes = 4 * (sum(t.numel() for t in ops) + 2 * state.numel()
+                   + seq.numel())
+    return float(OPS_A_STEP * seq.numel() * per_step), float(n_bytes)
+
+
+def wkv6_bwd_work(*args, **_static) -> tuple:
+    """(flops, bytes) of one backward call: its operands, the forward's
+    checkpoints and the two gradients it starts from read once, its six
+    gradients written once (float32), against ``BWD_OPS_A_STEP`` float
+    operations a state value and step."""
+    *ops, ckpt, dout, dstate = args
+    per_step = ops[4].shape[-1]
+    n_in = sum(t.numel() for t in (*ops, ckpt, dout, dstate))
+    n_out = sum(t.numel() for t in ops) + dstate.numel()
+    return (float(BWD_OPS_A_STEP * ops[0].numel() * per_step),
+            float(4 * (n_in + n_out)))
+
+
 register_kernel(KernelOp(
     name="wkv6",
     cuda_body=wkv6_cuda,
     reference_body=wkv6_ref,
     cost_hint=_cost,
+    work=wkv6_work,
 ))
 
 
@@ -214,6 +255,7 @@ register_kernel(KernelOp(
     cuda_body=wkv6_bwd_cuda,
     reference_body=wkv6_bwd_ref,
     cost_hint=_cost,
+    work=wkv6_bwd_work,
 ))
 
 

@@ -120,6 +120,14 @@ def expert_capacity(n_tokens: int, cfg: MoEConfig) -> int:
                       / cfg.n_experts + 0.999))
 
 
+def _bucket_counts(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(keys, minlength=n)`` for keys known to lie in
+    [0, n): a static shape (the dry run traces it on meta tensors, which
+    ``bincount``'s data-dependent length cannot run on)."""
+    return torch.zeros(n, dtype=torch.int64, device=keys.device).scatter_add_(
+        0, keys.long(), torch.ones_like(keys, dtype=torch.int64))
+
+
 def _act(h: torch.Tensor, act: str) -> torch.Tensor:
     # jax.nn.gelu is the tanh approximation by default
     return F.silu(h) if act == "silu" else F.gelu(h, approximate="tanh")
@@ -154,7 +162,7 @@ def moe_block_local(params: dict, x_loc: torch.Tensor, cfg: MoEConfig, *,
     # position of each (token, k) pair within its expert's slots
     sort_ix = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[sort_ix]
-    counts = torch.bincount(flat_e, minlength=e_loc + 1)
+    counts = _bucket_counts(flat_e, e_loc + 1)
     starts = torch.cumsum(counts, 0) - counts
     pos_sorted = torch.arange(n_pairs, device=dev) - starts[sorted_e]
     pos = torch.empty_like(pos_sorted).scatter_(0, sort_ix, pos_sorted)
@@ -192,7 +200,7 @@ def _ranked(keys: torch.Tensor, n_buckets: int
     counts [n_buckets + 1], starts, rank of each key in its bucket)."""
     n = keys.numel()
     order = torch.argsort(keys, stable=True)
-    counts = torch.bincount(keys, minlength=n_buckets + 1)
+    counts = _bucket_counts(keys, n_buckets + 1)
     starts = torch.cumsum(counts, 0) - counts
     rank_sorted = torch.arange(n, device=keys.device) - starts[keys[order]]
     rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)

@@ -71,6 +71,8 @@ rank's cache blocks.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import functools
 from dataclasses import dataclass
@@ -102,11 +104,34 @@ from .rwkv6 import (init_rwkv_cmix, init_rwkv_cmix_cache, init_rwkv_tmix,
                     rwkv_tmix_prefill, rwkv_tmix_train)
 
 __all__ = ["ShardCtx", "init_params", "forward", "prefill", "decode_step",
-           "init_cache", "loss_fn"]
+           "init_cache", "loss_fn", "replication_tally"]
 
 _NOT_PORTED = "not a block kind of the reference (ROADMAP.md)"
 _MIXERS = ("attn", "mla", "mamba", "rwkv6", "none")
 _FFNS = ("mlp", "moe", "rwkv6_cmix", "none")
+
+#: the open :func:`replication_tally` counters
+_TALLIES: list = []
+
+
+@contextlib.contextmanager
+def replication_tally():
+    """Counts, while open, each computation a mesh pass runs whole on every
+    rank of a model axis larger than one (``ShardCtx.replicate``): by kind
+    ("attn", "mla", "mamba", "rwkv6", "mlp", "rwkv6_cmix", "moe_shared",
+    "embed", "head"), one a layer and pass.  Yields a ``Counter``."""
+    tally: collections.Counter = collections.Counter()
+    _TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        _TALLIES.remove(tally)
+
+
+def _replicated(ctx: "ShardCtx", kind: str) -> None:
+    if _TALLIES and ctx.tp_size > 1:
+        for tally in _TALLIES:
+            tally[kind] += 1
 
 
 @dataclass(frozen=True, eq=False)
@@ -341,6 +366,7 @@ def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                             ctx.param_specs and
                             ctx.param_specs["embed"]["table"])
     if ts is None or ts[0] != ctx.tp_axis:
+        _replicated(ctx, "embed")
         return embed({"table": ctx.replicate(table, ts)}, tokens)
     # vocab-parallel: each rank looks up the ids it holds, the rest are 0
     v_loc = table.shape[0]
@@ -380,6 +406,7 @@ def _head(cfg: ModelConfig, params: dict, x: torch.Tensor,
     w, ws = ctx.unshard(params[key][leaf],
                         ctx.param_specs and ctx.param_specs[key][leaf])
     if ws is None or ws[dim] != ctx.tp_axis:
+        _replicated(ctx, "head")
         w = ctx.replicate(w, ws)
         return (x @ w.T if dim == 0 else x @ w), None
     x = copy_to(x, ctx.tp_group)
@@ -400,6 +427,7 @@ def _apply_moe(cfg: ModelConfig, p: dict, h: torch.Tensor,
             ps, ("shared/up/w", -1), ("shared/gate/w", -1),
             ("shared/down/w", -2))
         if cfg.moe.n_shared and not shared_split:
+            _replicated(ctx, "moe_shared")
             p = {**p, "shared": ctx.replicate(p["shared"],
                                               ps and ps["shared"])}
         out, aux, _ = moe_apply(p, h, cfg.moe, mesh=ctx.mesh,
@@ -431,6 +459,7 @@ def _mixer_setup(cfg: ModelConfig, spec: BlockSpec, p: dict, ps: Any,
         return p["mixer"], dataclasses.replace(
             acfg, n_heads=acfg.n_heads // n,
             n_kv_heads=acfg.n_kv_heads // n), ctx.tp_group
+    _replicated(ctx, spec.mixer)
     return ctx.replicate(p["mixer"], ms), acfg, None
 
 
@@ -445,6 +474,7 @@ def _ffn_setup(cfg: ModelConfig, spec: BlockSpec, p: dict, ps: Any,
             fs, ("up/w", -1), ("down/w", -2),
             *((("gate/w", -1),) if cfg.act == "silu" else ())):
         return p["ffn"], ctx.tp_group
+    _replicated(ctx, spec.ffn)
     return ctx.replicate(p["ffn"], fs), None
 
 

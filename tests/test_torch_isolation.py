@@ -5,7 +5,7 @@ examples, the model's prefill, decode and serving loop, a MoE and an MLA
 prefill, the recurrent families' prefill and decode, rwkv6's serving
 loop included, training with a checkpoint and a resume, and the mesh path
 at a world of 1: training, its checkpoint and resume, and an all-to-all
-MoE prefill) with jax, the
+MoE prefill; and the dry run of a cell on a fake world of 256) with jax, the
 reference package and ``ml_dtypes`` unimportable, no source file of it
 (nor ``chip_smoke.py``) imports any of them, and ``device=None`` never
 falls back to the CPU."""
@@ -224,6 +224,23 @@ res["meta"] = {t.device.type for t in
 """, lambda r: (len(r["losses"]) == 3 and r["resumed"] == [2, 1]
                 and all(l == l and l > 0 for l in r["losses"])
                 and r["moe_prefill"] == [1, 256] and r["meta"])),
+    "dryrun": (r"""
+import tempfile
+from repro_torch.configs import get_smoke_config
+from repro_torch.device import resolve_device
+from repro_torch.launch.dryrun import trace_cell
+with tempfile.TemporaryDirectory() as d:
+    r = trace_cell("gemma3-1b", "train_4k", False, d, True, True, "full", "",
+                   cfg=get_smoke_config("gemma3-1b"))
+res["dryrun"] = [r["status"], r["devices"], r["analysis"]["kernels"]]
+try:
+    resolve_device(None)
+    res["device_none"] = "card"
+except RuntimeError:
+    res["device_none"] = "raises without a card"
+""", lambda r: (r["dryrun"] == ["ok", 256, {"flash_attention_fwd": 14,
+                                            "flash_attention_bwd": 7}]
+                and r["device_none"] == "raises without a card")),
     "examples": (r"""
 from repro_torch.examples import betweenness_centrality, quickstart
 import repro_torch.examples.mandelbrot_render
@@ -270,6 +287,14 @@ def test_static_scan_finds_no_jax_or_repro_import():
     bad = {str(f.relative_to(ROOT)): m.group(0).strip()
            for f in files for m in [_FORBIDDEN.search(f.read_text())] if m}
     assert bad == {}
+
+
+def test_fake_process_group_only_in_the_dry_run():
+    """The fake backend (a test utility of torch) is imported by the dry
+    run alone."""
+    users = sorted(str(f.relative_to(ROOT)) for f in _port_sources()
+                   if "torch.testing" in f.read_text())
+    assert users == ["src/repro_torch/launch/dryrun.py"]
 
 
 def test_static_scan_pattern_catches_imports():

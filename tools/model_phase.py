@@ -1,6 +1,7 @@
 """One model phase of ``chip_smoke.py`` alone, to iterate on it.
 
-    python tools/model_phase.py {model,families,recurrent,training,mesh}
+    python tools/model_phase.py {model,families,recurrent,training,mesh,
+                                 roofline}
 
 runs the smoke's environment and build phases, then ``phase_model``
 (gemma3-1b), ``phase_model_families`` (deepseek-moe-16b, deepseek-v3 and
@@ -9,7 +10,10 @@ and jamba's period) or ``phase_training`` (the flash backward kernel,
 gemma3-1b's gradient and its training killed and resumed, MoE training,
 the ``train_lm`` twin, the scans' backward kernels and rwkv6-1.6b's and
 jamba's training) or ``phase_mesh`` (after the meshless steps it compares
-with: gemma3-1b's first ``MESH_STEPS`` steps of phase 13's schedule) on
+with: gemma3-1b's first ``MESH_STEPS`` steps of phase 13's schedule) or
+the mesh phase and then ``phase_roofline`` (the dry run held to the mesh
+phase's counted step; its dry runs run in spawned processes, so this
+script's work sits under its ``__main__`` guard) on
 the card, with the smoke's settings, and writes
 the phase's record to ``chiprun_out/<phase>.json``.  Needs a CUDA card and
 ``nvcc``; the recurrent phase takes some 2 minutes with the build.
@@ -44,20 +48,40 @@ def mesh_alone(dev):
     return cs.phase_mesh(dev, training)
 
 
+def roofline_alone(dev):
+    """``phase_roofline`` after the mesh phase it reads."""
+    card = cs.phase_environment()
+    dry_runs = cs.start_dry_runs()
+    mesh = mesh_alone(dev)
+    return {"mesh": mesh, "roofline": cs.phase_roofline(
+        card, mesh, cs.wait_dry_runs(dry_runs))}
+
+
 PHASES = {"model": cs.phase_model, "families": cs.phase_model_families,
           "recurrent": cs.phase_recurrent_families,
-          "training": cs.phase_training, "mesh": mesh_alone}
-name = sys.argv[1] if len(sys.argv) > 1 else "recurrent"
-if name not in PHASES or not torch.cuda.is_available():
-    sys.exit(f"usage: python tools/model_phase.py {{{','.join(PHASES)}}} "
-             f"(on a CUDA card)")
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-cs.phase_environment()
-cs.phase_build()
-rec = PHASES[name](torch.device("cuda", 0))
-cs.OUT_DIR.mkdir(parents=True, exist_ok=True)
-(cs.OUT_DIR / f"{name}.json").write_text(json.dumps(rec, indent=1,
-                                                   default=str))
-print(f"[done] {name}: {cs.OUT_DIR / f'{name}.json'}")
+          "training": cs.phase_training, "mesh": mesh_alone,
+          "roofline": roofline_alone}
+
+
+def main() -> None:
+    name = sys.argv[1] if len(sys.argv) > 1 else "recurrent"
+    if name not in PHASES or not torch.cuda.is_available():
+        sys.exit(f"usage: python tools/model_phase.py {{{','.join(PHASES)}}} "
+                 f"(on a CUDA card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cs.phase_environment()
+    cs.phase_build()
+    try:
+        rec = PHASES[name](torch.device("cuda", 0))
+    finally:
+        cs.stop_children()
+    cs.OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (cs.OUT_DIR / f"{name}.json").write_text(json.dumps(rec, indent=1,
+                                                       default=str))
+    print(f"[done] {name}: {cs.OUT_DIR / f'{name}.json'}")
+
+
+if __name__ == "__main__":
+    main()

@@ -4363,15 +4363,24 @@ def scan_bound(name: str, args) -> tuple:
 def check_scan(name: str, tap, label: str, reps: int = 3) -> dict:
     """A scan kernel against its plain version on the one set of operands
     the prefill's tap kept (a layer of the main path; the state as it was
-    before the launch): the output and the final state within
-    ``SCAN_REL_TOL`` of the largest |value|; the kernel's CUDA-event time
-    (median of ``reps``), the plain version's (one run, whose output is the
-    one compared: a Python loop of some 8 launches a step), and the bound.
+    before the launch): ``check_scan_on``, with the tap's launches."""
+    (kept,) = tap.samples.values()
+    args, static = kept[0]
+    rec = check_scan_on(name, args, static, label, reps)
+    rec["launches"] = sum(tap.seen.values())
+    return rec
+
+
+def check_scan_on(name: str, args, static: dict, label: str,
+                  reps: int = 3) -> dict:
+    """A scan kernel against its plain version on these operands (the
+    state last): the output and the final state within ``SCAN_REL_TOL``
+    of the largest |value|; the kernel's CUDA-event time (median of
+    ``reps``), the plain version's (one run, whose output is the one
+    compared: a Python loop of some 8 launches a step), and the bound.
     No single PyTorch call computes either recurrence: no library time."""
     import torch
     from repro_torch.kernels.dispatch import dispatch
-    (kept,) = tap.samples.values()
-    args, static = kept[0]
     *ops, state0 = args
 
     def run(state, backend):
@@ -4410,8 +4419,7 @@ def check_scan(name: str, tap, label: str, reps: int = 3) -> dict:
             "max_abs_err_state": s_err, "max_abs_state": s_scale,
             "rel_tol": SCAN_REL_TOL, "bit_equal": bit_equal, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,
-            "launches": sum(tap.seen.values())}
+            "library_ms": None}
 
 
 def phase_recurrent_families(dev) -> dict:
@@ -5645,13 +5653,265 @@ def mesh_moe(dev, mesh, paths: dict) -> dict:
     return rec
 
 
+#: phase 14's world-1 runs of the layers the model axis splits by heads or
+#: channels (at a world of 1 the one rank holds every head and channel):
+#: one train step of 1 x MESH_FAMILY_S and one prefill of as many tokens,
+#: each meshless and through the 1 x 1 mesh, full width, depth cut
+MESH_FAMILY_S = 4096
+#: deepseek-v3-671b's routed experts in those runs, cut from 256: the
+#: float32 moments of 256 experts' 11.3 B parameters do not fit the card
+MESH_V3_EXPERTS = 16
+
+
+def mesh_family_cfgs() -> dict:
+    """{name: (config, train launches, prefill launches, what was cut)}:
+    deepseek-v3-671b cut to one dense and one MoE MLA layer with its MTP
+    head (which the loss runs: an MLA block outside remat), jamba's
+    blocks 3 and 4 (Mamba + MoE, attention + MLP) and rwkv6-1.6b cut to 2
+    layers.  Under full remat a period's forward runs twice a step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Stage
+    v3 = get_config(MLA_ARCH)
+    v3 = dataclasses.replace(
+        v3, stages=tuple(Stage(1, st.pattern) for st in v3.stages),
+        moe=dataclasses.replace(v3.moe, n_experts=MESH_V3_EXPERTS))
+    jamba = get_config(JAMBA_ARCH)
+    jamba = dataclasses.replace(jamba, stages=(
+        Stage(1, jamba.stages[0].pattern[3:5]),))
+    rwkv = get_config(RWKV_ARCH)
+    rwkv = dataclasses.replace(rwkv, stages=tuple(
+        Stage(2, st.pattern) for st in rwkv.stages))
+    none = {k: 0 for k in MODEL_KERNELS}
+    return {
+        MLA_ARCH: (v3, {**none, "flash_attention_fwd": 5,
+                        "flash_attention_bwd": 3},
+                   {**none, "flash_attention_fwd": 2},
+                   {"n_layers": [61, 2], "n_experts": [256,
+                                                        MESH_V3_EXPERTS]}),
+        JAMBA_ARCH: (jamba, {**none, "selective_scan": 2,
+                             "selective_scan_bwd": 1,
+                             "flash_attention_fwd": 2,
+                             "flash_attention_bwd": 1},
+                     {**none, "selective_scan": 1,
+                      "flash_attention_fwd": 1},
+                     {"stages": "blocks 3 and 4 of the 8-layer period: "
+                                "Mamba + MoE, attention + MLP"}),
+        RWKV_ARCH: (rwkv, {**none, "wkv6": 4, "wkv6_bwd": 2},
+                    {**none, "wkv6": 2}, {"n_layers": [24, 2]})}
+
+
+def mesh_families(dev, mesh, paths: dict) -> dict:
+    """The layers the model axis now splits by heads or channels (MLA with
+    the MTP head, Mamba, RWKV-6's time mix), at full width and cut depth
+    (``mesh_family_cfgs``), each through one train step and one prefill,
+    meshless and then through ``plan_cell`` over the 1 x 1 mesh: the
+    losses and the logits bit for bit."""
+    import torch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import plan_cell
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    opt_cfg = AdamWConfig(peak_lr=TRAIN_LR, total_steps=1, warmup_steps=1)
+    out = {}
+    for arch, (cfg, want_train, want_pre, reduced) in \
+            mesh_family_cfgs().items():
+        t0 = time.monotonic()
+        batch = SyntheticLM(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=MESH_FAMILY_S,
+            global_batch=1)).batch(0)
+        toks = {"tokens": torch.from_numpy(batch["tokens"]).to(dev)}
+        got: dict = {}
+        for where, m in (("meshless", None), ("1x1 mesh", mesh)):
+            plan = plan_cell(cfg, ShapeSpec("custom", MESH_FAMILY_S, 1,
+                                            "train"), m, opt_cfg=opt_cfg,
+                             device=dev)
+            params = init_params(cfg, 0, device=dev, ctx=plan.ctx)
+            opt = init_opt_state(params, opt_cfg)
+            (_, _, metrics), step_s, _ = counted_path(
+                f"{arch} cut, train step, {where}",
+                lambda: plan.step(params, opt, batch), want_train, paths)
+            del params, opt, plan
+            torch.cuda.empty_cache()
+            pre = plan_cell(cfg, ShapeSpec("p", MESH_FAMILY_S, 1,
+                                           "prefill"), m, device=dev)
+            params = init_params(cfg, 0, device=dev, ctx=pre.ctx)
+            (logits, _), pre_s, _ = counted_path(
+                f"{arch} cut, prefill {MESH_FAMILY_S}, {where}",
+                lambda: pre.step(params, toks), want_pre, paths)
+            del params, pre
+            torch.cuda.empty_cache()
+            got[where] = {"loss": float(metrics["loss"]),
+                          "metrics": {k: float(v) for k, v in
+                                      metrics.items()},
+                          "logits": logits, "step_s": step_s,
+                          "prefill_s": pre_s}
+        one, mine = got["meshless"], got["1x1 mesh"]
+        rec = {"reduced": reduced,
+               "losses": [one["loss"], mine["loss"]],
+               "metrics": [one["metrics"], mine["metrics"]],
+               "loss_bit_equal": one["loss"] == mine["loss"]
+               and one["metrics"] == mine["metrics"],
+               "logits_bit_equal": bool(torch.equal(one["logits"],
+                                                    mine["logits"])),
+               "finite": bool(torch.isfinite(mine["logits"]).all())
+               and mine["loss"] == mine["loss"],
+               "step_s": [one["step_s"], mine["step_s"]],
+               "prefill_s": [one["prefill_s"], mine["prefill_s"]],
+               "seconds": time.monotonic() - t0}
+        del got, one, mine
+        log(f"[mesh] {arch} ({reduced}), 1 x {MESH_FAMILY_S}: train step "
+            f"loss {rec['losses'][1]:.6f} on the 1x1 mesh, "
+            f"{rec['losses'][0]:.6f} meshless (bit for bit with every "
+            f"metric: {rec['loss_bit_equal']}); prefill logits bit for bit: "
+            f"{rec['logits_bit_equal']}; steps {rec['step_s'][0]:.3f} / "
+            f"{rec['step_s'][1]:.3f} s, prefills {rec['prefill_s'][0]:.3f} / "
+            f"{rec['prefill_s'][1]:.3f} s; {rec['seconds']:.1f} s in all")
+        if not (rec["loss_bit_equal"] and rec["logits_bit_equal"]
+                and rec["finite"]):
+            raise AssertionError(f"mesh {arch}: {rec}")
+        out[arch] = rec
+    return out
+
+
+#: a rank's share of each split layer at the production mesh's model axis
+#: of 16: jamba's Mamba layer 512 of its 8,192 channels, rwkv6-1.6b 2 of
+#: its 32 heads of 64, two query heads on one KV head of D 128 (glm4-9b,
+#: chatglm3-6b, llava-next-mistral-7b, jamba's attention), three
+#: (starcoder2-15b), deepseek-v3's MLA 8 of its 128 heads (q.k 192, v 128,
+#: zero-padded to 256); at S 4,096 and B 2 (a rank's 16 sequences of
+#: train_4k cut to 2), the scans' backward at S 1,024 (their plain
+#: backward is autograd over a Python loop of S steps)
+SHARE_B, SHARE_S, SHARE_BWD_S = 2, 4096, 1024
+SHARE_MAMBA_DI, SHARE_MAMBA_N = 512, 16
+SHARE_RWKV_H, SHARE_RWKV_HD = 2, 64
+SHARE_GQA = {"gqa_2_on_1": 2, "gqa_3_on_1": 3}
+SHARE_MLA_H, SHARE_MLA_DK, SHARE_MLA_DV, SHARE_MLA_PAD = 8, 192, 128, 256
+
+
+def share_kernels(dev) -> dict:
+    """Every model kernel at a rank's share of its layer (``SHARE_*``), on
+    operands from a seed in the models' dtypes (float32 q and k after
+    RoPE, bf16 v; the scans in float32), each held to its plain version
+    under the tolerances of its other checks (``check_scan_on``,
+    ``check_scan_bwd``, ``check_flash``, ``check_flash_bwd``), timed beside
+    its bound from its op's ``work``; the launches each check made of the
+    kernel (none of the main path's)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    t0 = time.monotonic()
+    gen = torch.Generator(device=dev).manual_seed(29)
+    rand = lambda *sh: torch.randn(*sh, device=dev, generator=gen)
+    out: dict = {}
+
+    def counted(key: str, kernel: str, fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        rec = fn()
+        torch.cuda.synchronize()
+        rec["launches"] = launches(kernel)
+        if rec["launches"] <= 0:
+            raise AssertionError(f"{key}: {kernel} did not launch")
+        out[key] = rec
+
+    def mamba_ops(s):
+        b, di, n = SHARE_B, SHARE_MAMBA_DI, SHARE_MAMBA_N
+        return [rand(b, s, di), F.softplus(rand(b, s, di) - 2),
+                rand(b, s, n), rand(b, s, n),
+                -torch.arange(1, n + 1, device=dev,
+                              dtype=torch.float32).repeat(di, 1)], \
+            rand(b, di, n)
+
+    def rwkv_ops(s):
+        b, h, hd = SHARE_B, SHARE_RWKV_H, SHARE_RWKV_HD
+        return [rand(b, s, h, hd) * 0.5 for _ in range(3)] + [
+            torch.exp(-torch.exp(rand(b, s, h, hd) - 2)),
+            rand(h, hd) * 0.1], rand(b, h, hd, hd)
+
+    # the scans, forward at S and backward at SHARE_BWD_S
+    for name, ops_of, label in (
+            ("selective_scan", mamba_ops,
+             f"jamba Mamba layer, a rank's Di {SHARE_MAMBA_DI}"),
+            ("wkv6", rwkv_ops, f"rwkv6-1.6b layer, a rank's "
+                               f"{SHARE_RWKV_H} heads of {SHARE_RWKV_HD}")):
+        ops, state = ops_of(SHARE_S)
+        counted(name, name, lambda: check_scan_on(
+            name, (*ops, state), {}, f"{label}, B {SHARE_B}"))
+        ops, state = ops_of(SHARE_BWD_S)
+        fwd, _, _ = _scan_fns(f"{name}_bwd")
+        _, _, ckpt = fwd(*ops, state.clone(), checkpoints=True)
+        dout = rand(*ops[0].shape)
+        args = (*ops, ckpt, dout, torch.randn_like(state))
+        counted(f"{name}_bwd", f"{name}_bwd", lambda: check_scan_bwd(
+            f"{name}_bwd", args, f"{label}, B {SHARE_B}, S {SHARE_BWD_S}",
+            reps=3))
+        del ops, state, ckpt, dout, args
+    # flash attention: GQA query heads on one KV head, and MLA's heads
+    static = dict(causal=True, window=None, softcap=None)
+    cases = [(key, g, 1, 128, 128, 128, f"{g} query heads on 1 KV head, "
+              f"D 128") for key, g in SHARE_GQA.items()]
+    cases.append(("mla", 1, SHARE_MLA_H, SHARE_MLA_DK, SHARE_MLA_DV,
+                  SHARE_MLA_PAD, f"MLA, a rank's {SHARE_MLA_H} heads "
+                  f"(q.k {SHARE_MLA_DK}, v {SHARE_MLA_DV}, padded to "
+                  f"{SHARE_MLA_PAD})"))
+    for key, g, hkv, dk, dv, d, label in cases:
+        rows = SHARE_B * hkv
+        q2 = F.pad(rand(rows * g, SHARE_S, dk) * dk ** -0.5, (0, d - dk))
+        k2 = F.pad(rand(rows, SHARE_S, dk), (0, d - dk))
+        v2 = F.pad(rand(rows, SHARE_S, dv), (0, d - dv)).to(torch.bfloat16)
+        label = f"{label}, B {SHARE_B}"
+
+        def fwd_check():
+            rec = check_flash(q2, k2, v2, label=label, reps=3, **static)
+            if d != dk:     # the bound on the unpadded work
+                b_ms, b_by, flops = flash_bound(
+                    q2[..., :dk], k2[..., :dk], v2[..., :dv], True, None)
+                rec.update(padded_bound_ms=rec["bound_ms"], bound_ms=b_ms,
+                           bound_by=b_by, flops=flops,
+                           unpadded=f"q.k {dk}, v {dv}")
+            return rec
+        counted(f"flash_attention_fwd {key}", "flash_attention_fwd",
+                fwd_check)
+        o, lse = flash_attention_cuda(q2, k2, v2, return_lse=True, **static)
+        dout = torch.randn(o.shape, device=dev, generator=gen).to(o.dtype)
+        if d != dv:         # the gradient of the cut output columns is 0
+            dout[..., dv:] = 0
+        counted(f"flash_attention_bwd {key}", "flash_attention_bwd",
+                lambda: check_flash_bwd((q2, k2, v2, o, dout, lse), static,
+                                        label))
+        if d != dk:
+            rec = out[f"flash_attention_bwd {key}"]
+            b_ms, b_by, flops = flash_bwd_bound(
+                q2[..., :dk], k2[..., :dk], v2[..., :dv], True, None)
+            rec.update(padded_bound_ms=rec["bound_ms"], bound_ms=b_ms,
+                       bound_by=b_by, flops=flops,
+                       unpadded=f"q.k {dk}, v {dv}")
+        del q2, k2, v2, o, lse, dout
+        torch.cuda.empty_cache()
+    for key, rec in out.items():
+        log(f"[mesh] a rank's share, {key}: {rec['shape']}: kernel "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+            f"{rec['ms'] / rec['bound_ms']:.1f}x; {rec['launches']} "
+            f"launches in the check")
+    out["seconds"] = time.monotonic() - t0
+    log(f"[mesh] the kernels at a rank's share: {out['seconds']:.1f} s")
+    return out
+
+
 def phase_mesh(dev, training: dict) -> dict:
     """Phase 14: the mesh path on the card.  One card is a world of 1: a
     1 x 1 ("data", "model") mesh over NCCL (``make_host_mesh``), which runs
     every line of the path (the process groups, the FSDP gathers and
     reduce-scatters, the model axis's all-reduces, the vocab-parallel loss,
     the MoE all-to-all) on one rank; worlds of 2 and 4 are the CPU tests'
-    (``tests/test_torch_mesh.py``, gloo).  ``mesh_train``, ``mesh_moe``."""
+    (``tests/test_torch_mesh.py``, gloo).  ``mesh_train``, ``mesh_moe``,
+    ``mesh_families`` (MLA, Mamba and RWKV-6 through the split path), and
+    ``share_kernels`` (each kernel at a rank's share of the production
+    mesh's model axis of 16)."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     t_phase = time.monotonic()
@@ -5664,8 +5924,10 @@ def phase_mesh(dev, training: dict) -> dict:
     try:
         out["train"] = mesh_train(dev, mesh, paths, training)
         out["moe"] = mesh_moe(dev, mesh, paths)
+        out["families"] = mesh_families(dev, mesh, paths)
     finally:
         dist.destroy_process_group()
+    out["shares"] = share_kernels(dev)
     out["seconds"] = time.monotonic() - t_phase
     log(f"[mesh] phase: {out['seconds']:.1f} s")
     return out
@@ -6177,6 +6439,19 @@ def main() -> int:
             **{x: k[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "shape", "deterministic",
                                  "forward_bits_kept")}}
+    # each model kernel at a rank's share of its layer on the production
+    # mesh's model axis of 16 (phase 14)
+    for key, rec in mesh["shares"].items():
+        if key == "seconds":
+            continue
+        name, _, case = key.partition(" ")
+        k = kernels[name]
+        k.setdefault("rank_share", {})[case or "layer"] = {
+            x: rec[x] for x in ("shape", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "max_abs_err",
+                                "launches", "unpadded", "padded_bound_ms")
+            if x in rec}
+        k["max_abs_err"] = max(k["max_abs_err"], rec["max_abs_err"])
     # the chaos and harness phases' paths, each with the launches of the
     # kernels it runs (a harness path that runs no kernel records none)
     for phase in (chaos, harness):
@@ -6197,7 +6472,7 @@ def main() -> int:
                                     "jamba_layer", "float32_case",
                                     "deterministic", "lse_leaves_o",
                                     "max_abs_err_is", "forward_bits_kept",
-                                    "small_shapes",
+                                    "small_shapes", "rank_share",
                                     "bit_equal",
                                     "full_iteration_ms",
                                     "bound_dwell_sum_ms", "in_set_main_path",

@@ -24,6 +24,11 @@ core, the KV cache is ``{"k", "v"}`` of [B, max_seq, Hkv, D].
   write, which moves one row per sequence instead of the whole cache.
   Its masked dot over the cache stays plain PyTorch, as the reference
   leaves it to XLA.
+* ``kv=(first, n_kv)`` (prefill and decode on a mesh whose model axis
+  splits the query heads but not the KV heads): ``cfg`` is the rank's
+  (its query heads, on ``cfg.n_kv_heads`` KV heads), ``wk`` and ``wv`` are
+  whole and give all ``n_kv`` heads, which the cache holds; the rank's
+  heads attend to KV heads ``[first, first + cfg.n_kv_heads)`` of them.
 """
 from __future__ import annotations
 
@@ -54,17 +59,24 @@ def init_attention(gen: torch.Generator, d_model: int, cfg: AttentionConfig,
 
 
 def _qkv(params: dict, x: torch.Tensor, positions: torch.Tensor,
-         cfg: AttentionConfig
+         cfg: AttentionConfig, kv: Optional[Tuple[int, int]] = None
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, s, _ = x.shape
+    n_kv = cfg.n_kv_heads if kv is None else kv[1]
     q = dense(params["wq"], x).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = dense(params["wk"], x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = dense(params["wv"], x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    k = dense(params["wk"], x).reshape(b, s, n_kv, cfg.head_dim)
+    v = dense(params["wv"], x).reshape(b, s, n_kv, cfg.head_dim)
     rd = cfg.rotary_dim or cfg.head_dim
     cos, sin = rope_freqs(positions, rd, cfg.rope_theta)
     q = apply_rope(q, cos, sin, rd)
     k = apply_rope(k, cos, sin, rd)
     return q, k, v
+
+
+def _own(t: torch.Tensor, cfg: AttentionConfig,
+         kv: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """The KV heads the rank's query heads attend to, of all of K or V."""
+    return t if kv is None else t.narrow(2, kv[0], cfg.n_kv_heads)
 
 
 def _soft_cap(scores: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
@@ -127,28 +139,33 @@ def init_kv_cache(batch: int, max_seq: int, cfg: AttentionConfig,
 
 
 def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor,
-                      cfg: AttentionConfig, **kw
+                      cfg: AttentionConfig, *,
+                      kv: Optional[Tuple[int, int]] = None, **kw
                       ) -> Tuple[torch.Tensor, dict]:
-    """Full-sequence pass that also emits the KV cache for [0, S).
-    ``kw`` goes to :func:`flash_attention` (``backend="ref"`` forces the
-    plain version on the card)."""
-    q, k, v = _qkv(params, x, positions, cfg)
-    return _attend(params, q, k, v, cfg, **kw), {"k": k, "v": v}
+    """Full-sequence pass that also emits the KV cache for [0, S) (all KV
+    heads with ``kv``, module docstring).  ``kw`` goes to
+    :func:`flash_attention` (``backend="ref"`` forces the plain version on
+    the card)."""
+    q, k, v = _qkv(params, x, positions, cfg, kv)
+    out = _attend(params, q, _own(k, cfg, kv), _own(v, cfg, kv), cfg, **kw)
+    return out, {"k": k, "v": v}
 
 
 def attention_decode(params: dict, cache: dict, x: torch.Tensor,
-                     pos: torch.Tensor, cfg: AttentionConfig
+                     pos: torch.Tensor, cfg: AttentionConfig, *,
+                     kv: Optional[Tuple[int, int]] = None
                      ) -> Tuple[torch.Tensor, dict]:
     """One decode step. x: [B, 1, D]; pos: [B] write/attend position.
-    Writes the new K and V into ``cache`` in place; returns (output
-    [B, 1, D], the same cache)."""
+    Writes the new K and V into ``cache`` in place (all KV heads with
+    ``kv``); returns (output [B, 1, D], the same cache)."""
     b = x.shape[0]
     k, v = cache["k"], cache["v"]
     max_seq = k.shape[1]
-    q, k_new, v_new = _qkv(params, x, pos[:, None], cfg)
+    q, k_new, v_new = _qkv(params, x, pos[:, None], cfg, kv)
     bi = torch.arange(b, device=x.device)
     k.index_put_((bi, pos), k_new[:, 0].to(k.dtype))
     v.index_put_((bi, pos), v_new[:, 0].to(v.dtype))
+    k, v = _own(k, cfg, kv), _own(v, cfg, kv)
 
     groups = cfg.n_heads // cfg.n_kv_heads
     scale = cfg.head_dim ** -0.5

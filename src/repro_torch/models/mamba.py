@@ -23,10 +23,16 @@ diagonal SSM recurrence -> gated out_proj.  The cache is ``{"conv":
 * :func:`mamba_decode` updates the cache **in place** (the kernel writes
   the state back; the conv window is shifted by a copy); the reference
   returns a new cache with the same values.
+* On a mesh whose model axis splits ``d_inner``, the parameters are the
+  rank's channels (``in_proj`` its x and z columns side by side, as the
+  caller assembles them) and the layer computes those channels only:
+  ``d_inner`` and ``dt_rank`` are read from the leaves, and ``reduce``
+  sums ``x_proj``'s partial products (the rank's rows) over the axis
+  before ``dt``, B and C are taken from them.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -72,10 +78,13 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _ssm_inputs(params: dict, xi: torch.Tensor, cfg: MambaConfig,
-                dt_rank: int) -> Tuple[torch.Tensor, ...]:
+                reduce: Optional[Callable] = None) -> Tuple[torch.Tensor, ...]:
     """(dt, B, C) float32 from the conv output ``xi`` (model dtype), and
     the decay rates A."""
+    dt_rank = params["dt_proj"]["w"].shape[0]
     proj = dense(params["x_proj"], xi)             # [.., R + 2N]
+    if reduce is not None:
+        proj = reduce(proj)
     dt_in = proj[..., :dt_rank]
     bmat = proj[..., dt_rank:dt_rank + cfg.d_state]
     cmat = proj[..., dt_rank + cfg.d_state:]
@@ -86,11 +95,12 @@ def _ssm_inputs(params: dict, xi: torch.Tensor, cfg: MambaConfig,
 
 
 def _mamba_full(params: dict, x: torch.Tensor, cfg: MambaConfig,
-                backend: Optional[str] = None
+                backend: Optional[str] = None,
+                reduce: Optional[Callable] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (y [B, S, D], final ssm state, raw conv inputs xi_pre [B, S, Di])."""
-    b, s, d = x.shape
-    d_inner, dt_rank = _dims(d, cfg)
+    b, s, _ = x.shape
+    d_inner = params["D"].shape[-1]
     xz = dense(params["in_proj"], x)               # [B, S, 2 * Di]
     xi_pre, z = torch.chunk(xz, 2, dim=-1)
 
@@ -102,7 +112,7 @@ def _mamba_full(params: dict, x: torch.Tensor, cfg: MambaConfig,
              for i in range(cfg.d_conv)) + params["conv_b"]
     xi = F.silu(xi)
 
-    dt, bmat, cmat, a = _ssm_inputs(params, xi, cfg, dt_rank)
+    dt, bmat, cmat, a = _ssm_inputs(params, xi, cfg, reduce)
     state = torch.zeros((b, d_inner, cfg.d_state), dtype=torch.float32,
                         device=x.device)
     xf = xi.float()
@@ -115,15 +125,18 @@ def _mamba_full(params: dict, x: torch.Tensor, cfg: MambaConfig,
 
 
 def mamba_train(params: dict, x: torch.Tensor, cfg: MambaConfig, *,
-                backend: Optional[str] = None) -> torch.Tensor:
+                backend: Optional[str] = None,
+                reduce: Optional[Callable] = None) -> torch.Tensor:
     """x: [B, S, D] -> [B, S, D] (causal)."""
-    return _mamba_full(params, x, cfg, backend)[0]
+    return _mamba_full(params, x, cfg, backend, reduce)[0]
 
 
 def mamba_prefill(params: dict, x: torch.Tensor, cfg: MambaConfig, *,
-                  backend: Optional[str] = None) -> Tuple[torch.Tensor, dict]:
+                  backend: Optional[str] = None,
+                  reduce: Optional[Callable] = None
+                  ) -> Tuple[torch.Tensor, dict]:
     """Full pass + carried cache (conv window of raw inputs, ssm state)."""
-    y, state, xi_pre = _mamba_full(params, x, cfg, backend)
+    y, state, xi_pre = _mamba_full(params, x, cfg, backend, reduce)
     # a copy: a view would keep the whole [B, S, 2 * Di] projection alive
     conv = xi_pre[:, -(cfg.d_conv - 1):, :].clone()
     return y, {"conv": conv, "ssm": state}
@@ -145,8 +158,6 @@ def mamba_decode(params: dict, cache: dict, x: torch.Tensor,
                  ) -> Tuple[torch.Tensor, dict]:
     """One step: x [B, 1, D] -> ([B, 1, D], cache), the cache updated in
     place."""
-    b, _, d = x.shape
-    d_inner, dt_rank = _dims(d, cfg)
     xz = dense(params["in_proj"], x[:, 0])         # [B, 2 * Di]
     xi, z = torch.chunk(xz, 2, dim=-1)
 
@@ -155,7 +166,7 @@ def mamba_decode(params: dict, cache: dict, x: torch.Tensor,
                             params["conv_w"].float())
     xi_c = F.silu(conv_out + params["conv_b"].float())
 
-    dt, bmat, cmat, a = _ssm_inputs(params, xi_c.to(x.dtype), cfg, dt_rank)
+    dt, bmat, cmat, a = _ssm_inputs(params, xi_c.to(x.dtype), cfg)
     y, _ = selective_scan(xi_c[:, None, :].contiguous(),
                           dt[:, None, :].contiguous(),
                           bmat[:, None, :].contiguous(),

@@ -22,10 +22,16 @@ key ``k_pe``) is all the decode cache holds: ``{"c_kv": [B, S, R],
   writes the new latent row into the cache **in place** (the reference
   blends a one-hot row into a new cache: the same values) and stays
   plain PyTorch, as the reference leaves it to XLA.
+* On a mesh whose model axis splits the heads, ``cfg`` is the rank's
+  (``n_heads`` its own) and ``wq_b``, ``wkv_b`` and ``wo`` its blocks; the
+  latent path (``wq_a``, ``wkv_a``, the two norms, ``k_pe``) is computed
+  whole, and ``enter`` is applied to the latents ``c_q``, ``c_kv`` and the
+  rope key ``k_pe`` where they pass to the rank's heads (the caller's
+  :func:`~repro_torch.runtime.collectives.copy_to`).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -38,6 +44,10 @@ __all__ = ["init_mla", "mla_train", "mla_prefill", "mla_decode",
            "init_mla_cache"]
 
 NEG_INF = -1e30
+
+
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
 
 
 def init_mla(gen: torch.Generator, d_model: int, cfg: MLAConfig,
@@ -62,12 +72,12 @@ def init_mla(gen: torch.Generator, d_model: int, cfg: MLAConfig,
 
 
 def _project_q(params: dict, x: torch.Tensor, positions: torch.Tensor,
-               cfg: MLAConfig, eps: float
+               cfg: MLAConfig, eps: float, enter: Callable = _same
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> q_nope [B,S,H,Dn], q_pe [B,S,H,Dr] (rope applied)."""
     b, s, _ = x.shape
-    q = dense(params["wq_b"],
-              rms_norm(params["q_norm"], dense(params["wq_a"], x), eps))
+    c_q = rms_norm(params["q_norm"], dense(params["wq_a"], x), eps)
+    q = dense(params["wq_b"], enter(c_q))
     q = q.reshape(b, s, cfg.n_heads, cfg.qk_head_dim)
     q_nope = q[..., :cfg.qk_nope_head_dim]
     q_pe = q[..., cfg.qk_nope_head_dim:]
@@ -87,14 +97,15 @@ def _project_kv_latent(params: dict, x: torch.Tensor,
 
 
 def _expanded(params: dict, x: torch.Tensor, positions: torch.Tensor,
-              cfg: MLAConfig, eps: float, backend: Optional[str]
+              cfg: MLAConfig, eps: float, backend: Optional[str],
+              enter: Callable = _same
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Causal MLA in the expanded form -> (output [B,S,D], c_kv, k_pe)."""
     b, s, _ = x.shape
     h = cfg.n_heads
-    q_nope, q_pe = _project_q(params, x, positions, cfg, eps)
+    q_nope, q_pe = _project_q(params, x, positions, cfg, eps, enter)
     c_kv, k_pe = _project_kv_latent(params, x, positions, cfg, eps)
-    kv = dense(params["wkv_b"], c_kv).reshape(
+    kv = dense(params["wkv_b"], enter(c_kv)).reshape(
         b, s, h, cfg.qk_nope_head_dim + cfg.v_head_dim)
     k_nope = kv[..., :cfg.qk_nope_head_dim]
     v = kv[..., cfg.qk_nope_head_dim:]
@@ -102,8 +113,8 @@ def _expanded(params: dict, x: torch.Tensor, positions: torch.Tensor,
     scale = cfg.qk_head_dim ** -0.5
     q = torch.cat([q_nope.to(q_pe.dtype), q_pe], dim=-1) * scale
     k = torch.cat([k_nope.to(k_pe.dtype),
-                   k_pe[:, :, None, :].expand(b, s, h, cfg.qk_rope_head_dim)],
-                  dim=-1)
+                   enter(k_pe)[:, :, None, :].expand(
+                       b, s, h, cfg.qk_rope_head_dim)], dim=-1)
     out = flash_attention(q.reshape(b, s, h, 1, cfg.qk_head_dim), k, v,
                           causal=True, backend=backend)
     out = out.reshape(b, s, h * cfg.v_head_dim).to(v.dtype)
@@ -112,20 +123,23 @@ def _expanded(params: dict, x: torch.Tensor, positions: torch.Tensor,
 
 def mla_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
               cfg: MLAConfig, *, eps: float = 1e-6,
-              backend: Optional[str] = None) -> torch.Tensor:
+              backend: Optional[str] = None,
+              enter: Callable = _same) -> torch.Tensor:
     """Full-sequence causal MLA (expanded form) on the flash core: the
     nope and rope parts fold into one q·k contraction over their
     concatenated head dim.  ``backend="ref"`` forces the plain version."""
-    return _expanded(params, x, positions, cfg, eps, backend)[0]
+    return _expanded(params, x, positions, cfg, eps, backend, enter)[0]
 
 
 def mla_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: MLAConfig, *, eps: float = 1e-6,
-                backend: Optional[str] = None) -> Tuple[torch.Tensor, dict]:
+                backend: Optional[str] = None,
+                enter: Callable = _same) -> Tuple[torch.Tensor, dict]:
     """Full-sequence pass that also emits the latent cache for [0, S)
     (projected once; the reference projects it a second time, to the
     same values)."""
-    out, c_kv, k_pe = _expanded(params, x, positions, cfg, eps, backend)
+    out, c_kv, k_pe = _expanded(params, x, positions, cfg, eps, backend,
+                                enter)
     return out, {"c_kv": c_kv, "k_pe": k_pe}
 
 

@@ -25,6 +25,11 @@ x_{t-1} (token shift).  The caches are ``{"state": [B, H, hd, hd] float32,
 * The decode functions update their cache **in place** (the kernel
   writes the state back, ``x_prev`` is copied over); the reference
   returns a new cache with the same values.
+* On a mesh whose model axis splits the heads, the time mix's parameters
+  are the rank's (``wr``, ``wk``, ``wv``, ``wg``, ``w_lora_b``, ``w_bias``,
+  ``u`` and ``ln_out`` its heads' columns, ``wo`` their rows; ``mix`` and
+  ``w_lora_a`` whole): the head count is read from ``u``, and the layer
+  computes those heads only.
 """
 from __future__ import annotations
 
@@ -109,34 +114,37 @@ def _tmix_full(params: dict, x: torch.Tensor, head_size: int,
                backend: Optional[str] = None):
     """-> (y [B, S, D], state after the last step); ``state`` is updated
     in place."""
-    h = x.shape[-1] // head_size
+    h = params["u"].shape[0]
     r, k, v, g, w = _tmix_inputs(params, x, x_prev)
     o, state = wkv6(_heads(r, h), _heads(k, h), _heads(v, h), _heads(w, h),
                     params["u"], state, backend=backend)
     return _mix_out(params, o, g, x.dtype), state
 
 
-def _zero_state(b: int, d: int, head_size: int,
+def _zero_state(b: int, h: int, head_size: int,
                 device: torch.device) -> torch.Tensor:
-    return torch.zeros((b, d // head_size, head_size, head_size),
-                       dtype=torch.float32, device=device)
+    return torch.zeros((b, h, head_size, head_size), dtype=torch.float32,
+                       device=device)
 
 
 def rwkv_tmix_train(params: dict, x: torch.Tensor, head_size: int, *,
                     backend: Optional[str] = None) -> torch.Tensor:
     b, _, d = x.shape
     return _tmix_full(params, x, head_size,
-                      _zero_state(b, d, head_size, x.device),
+                      _zero_state(b, params["u"].shape[0], head_size,
+                                  x.device),
                       x.new_zeros((b, d)), backend)[0]
 
 
 def rwkv_tmix_prefill(params: dict, x: torch.Tensor, head_size: int, *,
                       backend: Optional[str] = None
                       ) -> Tuple[torch.Tensor, dict]:
-    """Full pass returning the carried (state, last input) cache slice."""
+    """Full pass returning the carried (state, last input) cache slice (the
+    state of the parameters' heads)."""
     b, _, d = x.shape
     y, state = _tmix_full(params, x, head_size,
-                          _zero_state(b, d, head_size, x.device),
+                          _zero_state(b, params["u"].shape[0], head_size,
+                                      x.device),
                           x.new_zeros((b, d)), backend)
     return y, {"state": state, "x_prev": x[:, -1].clone()}
 
@@ -171,7 +179,7 @@ def rwkv_cmix_train(params: dict, x: torch.Tensor) -> torch.Tensor:
 def init_rwkv_tmix_cache(batch: int, d: int, head_size: int,
                          dtype: torch.dtype, device: torch.device) -> dict:
     return {
-        "state": _zero_state(batch, d, head_size, device),
+        "state": _zero_state(batch, d // head_size, head_size, device),
         "x_prev": torch.zeros((batch, d), dtype=dtype, device=device),
     }
 

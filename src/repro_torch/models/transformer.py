@@ -51,15 +51,39 @@ this rank's block over the dp axes when the batch divides them (else every
 dp rank runs all of it).  Within a period the FSDP-sharded leaves are
 all-gathered over their axis at use (inside remat, so the gathers repeat
 in the recomputation) and their gradients reduce-scattered.  Tensor
-parallelism over the model axis: an attention layer whose four projections
-the rules split computes its own heads (column-parallel q, k, v,
-row-parallel output all-reduced: the Megatron pair :func:`copy_to` /
-:func:`reduce_from`), a dense MLP likewise; the embedding and the output
-head are vocab-parallel, and the loss a vocab-parallel cross-entropy
-(:class:`_VocabXent`) that never gathers the logits.  A leaf whose rule
-degraded to replication computes replicated, and so do MLA, Mamba and
-RWKV-6 layers and RWKV-6's channel mix, whose model-split leaves are
-gathered whole before use (their split does not follow the heads' own).
+parallelism over the model axis: a layer whose leaves the rules split on
+head or channel boundaries computes only this rank's heads or channels,
+and its row-parallel output is all-reduced (the Megatron pair
+:func:`copy_to` / :func:`reduce_from`, which also sums the input's
+gradient):
+
+* attention whose four projections are split, and a dense MLP;
+* GQA attention whose query heads are split and whose KV heads stay whole
+  (the rank's query heads under one KV head): in training the whole
+  ``wk``/``wv`` leaves are cut to that head, their gradient summed over
+  the axis (``copy_to`` on the leaf); prefill and decode compute every KV
+  head, for the whole cache;
+* MLA: the latent path (``wq_a``, ``wkv_a``, the norms, ``k_pe``) whole on
+  every rank, the latents passing to the rank's heads through ``copy_to``
+  (so the layer's input takes no second sum);
+* Mamba: ``in_proj``'s column blocks are ``[x | z]``'s, not the rank's
+  channels, so it is gathered whole (its gradient reduce-scattered,
+  :func:`fsdp_gather`) and the rank's x and z columns cut from it;
+  ``x_proj``'s partial products are summed (all-reduce both ways);
+* RWKV-6's time mix where the heads divide the axis: token shift, ``mix``
+  and ``w_lora_a`` whole (their gradients summed), the whole leaves
+  ``wk``, ``wv``, ``wo``, ``w_bias`` and ``ln_out`` cut to the rank's heads
+  (:func:`split_rep`: the gradient's blocks gathered).
+
+Prefill all-gathers Mamba's and RWKV-6's final states into the whole cache
+the rules give every rank, and their decode runs replicated on it.  A
+layer whose split does not fall on heads or channels (its rule degraded,
+or the heads do not divide the axis), RWKV-6's channel mix, whose leaves
+the rules never split, and Mamba's and RWKV-6's decode compute replicated:
+their model-split leaves are gathered whole before use
+(:func:`replication_tally` counts them).  The embedding and the output head
+are vocab-parallel, and the loss a vocab-parallel cross-entropy
+(:class:`_VocabXent`) that never gathers the logits.
 MoE layers run :func:`moe.moe_apply`, the all-to-all dispatch where
 ``FLAGS.moe_a2a`` asks and the sequence divides the model axis (the
 reference's condition).  Under ``FLAGS.seq_shard_acts`` the residual
@@ -445,22 +469,158 @@ def _apply_moe(cfg: ModelConfig, p: dict, h: torch.Tensor,
     return out, aux
 
 
+@dataclass(frozen=True)
+class _Mixer:
+    """A block's mixer as one rank runs it: its parameters (this rank's
+    share where the layer runs split), its config (the attention or MLA
+    config with the rank's head counts; None for Mamba and RWKV-6), the
+    model axis's group when the layer runs split over it, and for GQA
+    layers whose KV heads stay whole ``kv = (first KV head, whole KV
+    heads)`` (``attention.py``)."""
+    params: dict
+    cfg: Any = None
+    group: Any = None
+    kv: Optional[Tuple[int, int]] = None
+
+
+_MAMBA_SPLIT = (("in_proj/w", -1), ("conv_w", -1), ("conv_b", -1),
+                ("x_proj/w", -2), ("dt_proj/w", -1), ("dt_bias", -1),
+                ("A_log", -2), ("D", -1), ("out_proj/w", -2))
+
+
 def _mixer_setup(cfg: ModelConfig, spec: BlockSpec, p: dict, ps: Any,
-                 ctx: Optional[ShardCtx]):
-    """-> (the mixer's parameters, its attention config, the model axis's
-    group when it runs head-parallel, else None)."""
-    acfg = _attn_cfg(cfg, spec)
+                 ctx: Optional[ShardCtx], mode: str = "train") -> _Mixer:
+    """The mixer of one block for a pass (``mode``: "train", "prefill" or
+    "decode"): split over the model axis where the rules' split of its
+    leaves falls on heads or channels, else replicated (module
+    docstring)."""
+    pm, acfg = p["mixer"], _attn_cfg(cfg, spec)
     if ctx is None:
-        return p["mixer"], acfg, None
+        return _Mixer(pm, cfg.mla if spec.mixer == "mla" else acfg)
     ms = ps and ps["mixer"]
-    if spec.mixer == "attn" and ctx.split(ms, ("wq/w", -1), ("wk/w", -1),
-                                          ("wv/w", -1), ("wo/w", -2)):
-        n = ctx.tp_size
-        return p["mixer"], dataclasses.replace(
-            acfg, n_heads=acfg.n_heads // n,
-            n_kv_heads=acfg.n_kv_heads // n), ctx.tp_group
+    n, group = ctx.tp_size, ctx.tp_group
+    if spec.mixer == "attn":
+        if ctx.split(ms, ("wq/w", -1), ("wk/w", -1), ("wv/w", -1),
+                     ("wo/w", -2)):
+            return _Mixer(pm, dataclasses.replace(
+                acfg, n_heads=acfg.n_heads // n,
+                n_kv_heads=acfg.n_kv_heads // n), group)
+        hq = acfg.n_heads // n
+        groups = acfg.n_heads // acfg.n_kv_heads
+        if ctx.split(ms, ("wq/w", -1), ("wo/w", -2)) and groups % hq == 0:
+            # the rank's query heads share one KV head, whose K and V
+            # projections are whole leaves
+            local = dataclasses.replace(acfg, n_heads=hq, n_kv_heads=1)
+            first = ctx.tp_rank * hq // groups
+            if mode != "train":     # the cache holds every KV head
+                return _Mixer(pm, local, group, (first, acfg.n_kv_heads))
+            d = acfg.head_dim
+            return _Mixer({**pm, **{k: {"w": copy_to(pm[k]["w"], group)
+                                        .narrow(-1, first * d, d)}
+                                    for k in ("wk", "wv")}}, local, group)
+    elif spec.mixer == "mla":
+        if ctx.split(ms, ("wq_b/w", -1), ("wkv_b/w", -1), ("wo/w", -2)):
+            return _Mixer(pm, dataclasses.replace(
+                cfg.mla, n_heads=cfg.mla.n_heads // n), group)
+    elif spec.mixer == "mamba":
+        if mode != "decode" and ctx.split(ms, *_MAMBA_SPLIT):
+            # in_proj's columns are [x | z]: its blocks are not the rank's
+            # channels, so it is gathered whole (its gradient
+            # reduce-scattered) and the rank's x and z columns cut from it
+            w = fsdp_gather(pm["in_proj"]["w"], -1, group)
+            di = w.shape[-1] // 2
+            k, r = di // n, ctx.tp_rank
+            w = torch.cat([w.narrow(-1, r * k, k),
+                           w.narrow(-1, di + r * k, k)], dim=-1)
+            return _Mixer({**pm, "in_proj": {"w": w}}, None, group)
+    elif spec.mixer == "rwkv6":
+        if mode != "decode" and ctx.split(
+                ms, ("wr/w", -1), ("wg/w", -1), ("w_lora_b/w", -1),
+                ("u", -2)):
+            # u split by heads: every split falls on them.  The token
+            # shift's mix and w_lora_a run whole on every rank: their
+            # gradients are summed over the axis.  The whole leaves the
+            # rank's heads use are cut to them: each block's gradient is
+            # its rank's alone, gathered
+            def cut(leaf, dim):
+                return split_rep(leaf, dim, group)
+            return _Mixer({
+                **pm, "mix": copy_to(pm["mix"], group),
+                "w_lora_a": {"w": copy_to(pm["w_lora_a"]["w"], group)},
+                "wk": {"w": cut(pm["wk"]["w"], -1)},
+                "wv": {"w": cut(pm["wv"]["w"], -1)},
+                "wo": {"w": cut(pm["wo"]["w"], -2)},
+                "w_bias": cut(pm["w_bias"], -1),
+                "ln_out": {"scale": cut(pm["ln_out"]["scale"], -1)}},
+                None, group)
     _replicated(ctx, spec.mixer)
-    return ctx.replicate(p["mixer"], ms), acfg, None
+    return _Mixer(ctx.replicate(pm, ms),
+                  cfg.mla if spec.mixer == "mla" else acfg)
+
+
+def _mixer(cfg: ModelConfig, spec: BlockSpec, p: dict, ps: Any,
+           ctx: Optional[ShardCtx], h: torch.Tensor, mode: str,
+           positions: Optional[torch.Tensor] = None,
+           backend: Optional[str] = None, cache: Optional[dict] = None,
+           pos: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """The block's mixer on the normed input ``h`` in a pass (``mode``) ->
+    (its output, the layer's cache from a prefill, else None).  Split over
+    the model axis (``_mixer_setup``): the output all-reduced, and the
+    input's gradient too, except for MLA, whose latents take that sum
+    where they pass to the rank's heads."""
+    m = _mixer_setup(cfg, spec, p, ps, ctx, mode)
+    g, pm = m.group, m.params
+    if spec.mixer == "attn":
+        if mode == "train":
+            return _tp(lambda y: attention_train(pm, y, positions, m.cfg,
+                                                 backend=backend), g, h), None
+        if mode == "prefill":
+            return _tp(lambda y: attention_prefill(
+                pm, y, positions, m.cfg, kv=m.kv, backend=backend), g, h)
+        out, _ = _tp(lambda y: attention_decode(pm, cache, y, pos, m.cfg,
+                                                kv=m.kv), g, h)
+        return out, None
+    if spec.mixer == "mla":
+        kw = dict(eps=cfg.norm_eps)
+        if g is not None:
+            kw["enter"] = functools.partial(copy_to, group=g)
+        c = None
+        if mode == "train":
+            out = mla_train(pm, h, positions, m.cfg, backend=backend, **kw)
+        elif mode == "prefill":
+            out, c = mla_prefill(pm, h, positions, m.cfg, backend=backend,
+                                 **kw)
+        else:
+            out, _ = mla_decode(pm, cache, h, pos, m.cfg, eps=cfg.norm_eps)
+        return (out if g is None else reduce_from(out, g)), c
+    if mode == "decode":
+        if spec.mixer == "mamba":
+            return mamba_decode(pm, cache, h, cfg.mamba,
+                                backend=backend)[0], None
+        return rwkv_tmix_decode(pm, cache, h, cfg.rwkv_head_size,
+                                backend=backend)[0], None
+    if spec.mixer == "mamba":
+        kw = dict(backend=backend)
+        if g is not None:    # x_proj's partial products (the rank's rows)
+            kw["reduce"] = lambda t: copy_to(reduce_from(t, g), g)
+        if mode == "train":
+            return _tp(lambda y: mamba_train(pm, y, cfg.mamba, **kw), g,
+                       h), None
+        out, c = _tp(lambda y: mamba_prefill(pm, y, cfg.mamba, **kw), g, h)
+        if g is not None:    # the whole cache, as cache_specs lays it out
+            c = {"conv": all_gather_dim(c["conv"], 2, g),
+                 "ssm": all_gather_dim(c["ssm"], 1, g)}
+        return out, c
+    hs = cfg.rwkv_head_size
+    if mode == "train":
+        return _tp(lambda y: rwkv_tmix_train(pm, y, hs, backend=backend), g,
+                   h), None
+    out, c = _tp(lambda y: rwkv_tmix_prefill(pm, y, hs, backend=backend), g,
+                 h)
+    if g is not None:
+        c = {**c, "state": all_gather_dim(c["state"], 1, g)}
+    return out, c
 
 
 def _ffn_setup(cfg: ModelConfig, spec: BlockSpec, p: dict, ps: Any,
@@ -539,17 +699,7 @@ def _block(cfg: ModelConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
     """One block of the training forward -> (x, MoE aux loss or None)."""
     if spec.mixer != "none":
         h = rms_norm(p["norm1"], sp.full(x), cfg.norm_eps)
-        pm, acfg, group = _mixer_setup(cfg, spec, p, ps, ctx)
-        if spec.mixer == "attn":
-            h = _tp(lambda y: attention_train(pm, y, positions, acfg,
-                                              backend=backend), group, h)
-        elif spec.mixer == "mla":
-            h = mla_train(pm, h, positions, cfg.mla, eps=cfg.norm_eps,
-                          backend=backend)
-        elif spec.mixer == "mamba":
-            h = mamba_train(pm, h, cfg.mamba, backend=backend)
-        else:
-            h = rwkv_tmix_train(pm, h, cfg.rwkv_head_size, backend=backend)
+        h, _ = _mixer(cfg, spec, p, ps, ctx, h, "train", positions, backend)
         x = x + sp.back(h)
     return _ffn(cfg, spec, p, x, ctx, ps, sp)
 
@@ -812,22 +962,8 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
                 c: Dict[str, Any] = {}
                 if spec.mixer != "none":
                     h = rms_norm(p["norm1"], sp.full(x), cfg.norm_eps)
-                    pm, acfg, group = _mixer_setup(cfg, spec, p, ps, ctx)
-                    if spec.mixer == "attn":
-                        h, c["mixer"] = _tp(
-                            lambda y: attention_prefill(
-                                pm, y, positions, acfg, backend=backend),
-                            group, h)
-                    elif spec.mixer == "mla":
-                        h, c["mixer"] = mla_prefill(
-                            pm, h, positions, cfg.mla,
-                            eps=cfg.norm_eps, backend=backend)
-                    elif spec.mixer == "mamba":
-                        h, c["mixer"] = mamba_prefill(
-                            pm, h, cfg.mamba, backend=backend)
-                    else:
-                        h, c["mixer"] = rwkv_tmix_prefill(
-                            pm, h, cfg.rwkv_head_size, backend=backend)
+                    h, c["mixer"] = _mixer(cfg, spec, p, ps, ctx, h,
+                                           "prefill", positions, backend)
                     x = x + sp.back(h)
                 if spec.ffn == "rwkv6_cmix":
                     pf, _ = _ffn_setup(cfg, spec, p, ps, ctx)
@@ -902,19 +1038,8 @@ def _decode_block(cfg: ModelConfig, spec: BlockSpec, p: dict, ps: Any,
                   ) -> torch.Tensor:
     if spec.mixer != "none":
         h = rms_norm(p["norm1"], x, cfg.norm_eps)
-        pm, acfg, group = _mixer_setup(cfg, spec, p, ps, ctx)
-        if spec.mixer == "attn":
-            h, _ = _tp(lambda y: attention_decode(pm, c["mixer"], y, pos,
-                                                  acfg), group, h)
-        elif spec.mixer == "mla":
-            h, _ = mla_decode(pm, c["mixer"], h, pos, cfg.mla,
-                              eps=cfg.norm_eps)
-        elif spec.mixer == "mamba":
-            h, _ = mamba_decode(pm, c["mixer"], h, cfg.mamba,
-                                backend=backend)
-        else:
-            h, _ = rwkv_tmix_decode(pm, c["mixer"], h, cfg.rwkv_head_size,
-                                    backend=backend)
+        h, _ = _mixer(cfg, spec, p, ps, ctx, h, "decode", backend=backend,
+                      cache=c["mixer"], pos=pos)
         x = x + h
     if spec.ffn == "rwkv6_cmix":
         pf, _ = _ffn_setup(cfg, spec, p, ps, ctx)

@@ -213,13 +213,19 @@ def test_smoke_cells_run_and_hold_the_reference_shards(runs, cell):
 
 
 def test_replicated_layers_recorded(runs):
-    """The smoke configs' 2 to 4 heads do not divide the model axis of
-    16: their attention computes replicated, and so do RWKV-6's layers."""
+    """A layer kind is tallied where the rules' split of its leaves does
+    not fall on heads or channels: the smoke configs' 2 to 4 heads do not
+    divide the model axis of 16 (attention, MLA, RWKV-6's time mix), and
+    the rules split none of RWKV-6's channel-mix leaves; jamba's smoke
+    ``d_inner`` of 64 splits by channels, 4 a rank, so its Mamba layers
+    run split and are not tallied."""
     cells = runs["port"]["cells"]
     assert "attn" in cells["gemma3-1b/train_4k/False"][3]
     assert {"rwkv6", "rwkv6_cmix"} <= set(cells["rwkv6-1.6b/train_4k/True"][3])
     assert "mla" in cells["deepseek-v3-671b/train_4k/False"][3]
-    assert "mamba" in cells["jamba-v0.1-52b/train_4k/False"][3]
+    for mp in (False, True):
+        jamba = cells[f"jamba-v0.1-52b/train_4k/{mp}"][3]
+        assert "attn" in jamba and "mamba" not in jamba, jamba
 
 
 @pytest.mark.parametrize("mesh", ["pod256", "pod512"])

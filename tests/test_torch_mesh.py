@@ -16,14 +16,21 @@ under the module's temporary directory, with a join timeout (a hung
 collective fails the tests, it does not hang the suite); each process
 runs every check and rank 0 writes what it found, which the test cases
 read.  The checks run float32 smoke configs: glm4-9b (4 heads on 2 KV
-heads: the model axis splits heads), deepseek-moe-16b (8 experts, one
-shared; also with ``moe_a2a`` and ``seq_shard_acts`` on: all-to-all
-dispatch, and the residual split over the sequence), jamba's smoke
-period (Mamba, MoE and attention; its Mamba leaves are split by the rules
-and gathered whole) and rwkv6-1.6b.  FSDP is forced on every leaf of 64
-elements or more, so the smoke leaves are data-sharded too.  The MoE
-configs run at a capacity factor of ``n_experts`` (no pair drops, so the
-per-shard capacity changes nothing) and with ``router_aux_weight`` 0: on a
+heads: a model axis of 2 splits every projection by heads), gemma3-1b (2
+heads on 1 KV head: one query head a rank, both on the one KV head, whose
+projections stay whole), deepseek-moe-16b (8 experts, one shared; also with
+``moe_a2a`` and ``seq_shard_acts`` on: all-to-all dispatch, and the
+residual split over the sequence), deepseek-v3-671b (MLA, 4 heads split
+by heads, the latent path whole on every rank; MoE; the MTP head in the
+loss), jamba's smoke period (Mamba split by channels, ``in_proj``'s x and
+z columns gathered and cut; MoE and attention) and rwkv6-1.6b (the time
+mix split by heads at 2, one a rank; the channel mix replicated, as the
+rules leave its leaves whole).  Mamba's and RWKV-6's decode runs
+replicated, on the whole cache (``test_torch_tp_layers.py`` runs each
+split layer kind alone, at model axes of 2 and 4).  FSDP is forced on
+every leaf of 64 elements or more, so the smoke leaves are data-sharded
+too.  The MoE configs run at a capacity factor of ``n_experts`` (no pair
+drops, so the per-shard capacity changes nothing) and with ``router_aux_weight`` 0: on a
 mesh the aux loss is the mean of each shard's Switch loss (the reference's
 ``pmean`` over the shards that route, dp or, under all-to-all, sequence),
 which is not the whole batch's, so it is held to the reference's
@@ -50,8 +57,9 @@ import torch
 
 WORLDS = {"1x2": (1, 1, 2), "2x1": (1, 2, 1), "2x2": (1, 2, 2),
           "2x1x2": (2, 1, 2)}      # (pods, data, model)
-ARCHS = ("glm4-9b", "deepseek-moe-16b", "deepseek-moe-16b+a2a+sp",
-         "jamba-v0.1-52b", "rwkv6-1.6b")
+ARCHS = ("glm4-9b", "gemma3-1b", "deepseek-moe-16b",
+         "deepseek-moe-16b+a2a+sp", "deepseek-v3-671b", "jamba-v0.1-52b",
+         "rwkv6-1.6b")
 #: the perf flags an arch's suffix turns on
 FLAGS_OF = {"a2a": "moe_a2a", "sp": "seq_shard_acts"}
 TOL = 1e-5

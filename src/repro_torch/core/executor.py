@@ -53,6 +53,7 @@ from typing import Any, Callable, Iterable, Iterator, List, Optional
 
 from .futures import (CompletionQueue, ElasticFuture, Task, TaskRecord,
                       TaskState, WorkerKilledError)
+from . import telemetry
 from .pool import Pool, register_pool
 from .provider import Backoff, ContainerFleet, ProviderModel
 from .telemetry import (CANCEL, CAPACITY_GROW, CAPACITY_SHRINK,
@@ -446,8 +447,16 @@ class BaseExecutor(Pool):
         if cold and self._chaos is not None:
             # injected cold-start inflation (slow AZ, image-pull storm)
             overhead += self._chaos.extra_cold_start(self.provider)
+        # spans: pool.invoke (the overhead's sleep) and pool.settle (the
+        # body's return to the future settled); the task id is the
+        # thread's current task while the body runs
+        spans_on = telemetry.SPANS_ON
         if overhead > 0:
+            t_in = time.monotonic() if spans_on else 0.0
             time.sleep(overhead)
+            if spans_on:
+                telemetry.add_span("pool.invoke", t_in, time.monotonic(),
+                                   task.task_id)
         try:
             if self.failure_rate > 0 and self._next_rand() < self.failure_rate:
                 raise RuntimeError(f"injected worker failure on {worker}")
@@ -455,9 +464,13 @@ class BaseExecutor(Pool):
                     batch=getattr(task.fn, "_repro_is_batch", False)):
                 raise WorkerKilledError(
                     f"injected container death on {worker}")
+            if spans_on:
+                telemetry.set_current_task(task.task_id)
             result = task.run()
         except BaseException as exc:  # noqa: BLE001 — report any failure
             task.end_time = time.monotonic()
+            if spans_on:
+                telemetry.set_current_task(None)
             killed = isinstance(exc, WorkerKilledError)
             if killed:
                 # the whole container died: it never rejoins the fleet,
@@ -480,12 +493,20 @@ class BaseExecutor(Pool):
                 return
             self.stats.on_finish(self._record(task, worker), ok=False)
             future._set_exception(exc)
+            if spans_on:
+                telemetry.add_span("pool.settle", task.end_time,
+                                   time.monotonic(), task.task_id)
             return
         task.end_time = time.monotonic()
+        if spans_on:
+            telemetry.set_current_task(None)
         self._release(cid)
         record = self._record(task, worker)
         self.stats.on_finish(record, ok=True)
         future._set_result(result)
+        if spans_on:
+            telemetry.add_span("pool.settle", task.end_time,
+                               time.monotonic(), task.task_id)
 
     def _release(self, cid: Optional[int]) -> None:
         if self._fleet is not None and cid is not None:

@@ -29,6 +29,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
+from . import telemetry
 from .adaptive import TaskShape
 from .costmodel import CostReport, serverless_cost
 from .futures import CompletionQueue, ElasticFuture, TaskState
@@ -460,6 +461,9 @@ def run_irregular(
     vt0 = getattr(pool, "virtual_time_s", None) or 0.0
     ramp_t0: List[float] = []  # first-event timestamp, cached once
 
+    # master.* spans: seed; at each completion the wait, then fold with
+    # split and dispatch inside it; close
+    t_seed = time.monotonic() if telemetry.SPANS_ON else None
     pending_arrivals: Optional[deque] = None
     if arrivals is not None:
         run_until = getattr(pool, "run_until", None)
@@ -486,6 +490,8 @@ def run_irregular(
     else:
         dispatch_ready(list(spec.seed(initial_shape or shape)),
                        initial_shape or shape, parent=PARENT_ROOT)
+    if t_seed is not None and arrivals is None:
+        telemetry.add_span("master.seed", t_seed, time.monotonic())
 
     deadline = None if timeout is None else t0 + timeout
     speculated = 0
@@ -552,6 +558,14 @@ def run_irregular(
     observe_completion = (getattr(autoscale, "observe_completion", None)
                           if autoscale is not None else None)
 
+    def split(result: Any, task_id: int, on: bool) -> List[Any]:
+        t_split = time.monotonic() if on else 0.0
+        kids = list(spec.split(result, shape))
+        if on:
+            telemetry.add_span("master.split", t_split, time.monotonic(),
+                               task_id)
+        return kids
+
     while outstanding or pending_arrivals:
         if pending_arrivals:
             # release every arrival due before the next completion, at
@@ -579,6 +593,7 @@ def run_irregular(
             # wake often enough to notice stragglers even when idle
             slice_s = max(speculative_deadline / 4, 1e-3)
             wait = slice_s if wait is None else min(wait, slice_s)
+        t_wait = time.monotonic() if telemetry.SPANS_ON else None
         try:
             # batched completion delivery: pop everything ready under
             # one lock acquisition (CompletionQueue.drain) instead of
@@ -589,14 +604,20 @@ def run_irregular(
                 max_items=1 if pending_arrivals is not None else None,
                 timeout=wait)
         except TimeoutError:
+            if t_wait is not None:
+                telemetry.add_span("master.wait", t_wait, time.monotonic())
             if speculative_deadline is not None:
                 scan_stragglers()
             continue
+        if t_wait is not None:
+            telemetry.add_span("master.wait", t_wait, time.monotonic())
         if speculative_deadline is not None:
             # a busy completion stream must not mask stragglers: check
             # deadlines on the completion path too, not only when idle
             scan_stragglers()
         for f in batch:
+            spans_on = telemetry.SPANS_ON
+            t_fold = time.monotonic() if spans_on else 0.0
             d = outstanding.pop(f)
             result = f.result()
             state = spec.reduce(state, result)
@@ -620,12 +641,12 @@ def run_irregular(
                     wal_log.emit(FOLDED, task_id=f._task.task_id,
                                  payload=entry)
                     folds_since += 1
-                    ready.append((list(spec.split(result, shape)),
+                    ready.append((split(result, f._task.task_id, spans_on),
                                   f._task.task_id))
                 else:
                     d.chunk.entries.append(entry)
                     d.chunk.deferred.append(
-                        (list(spec.split(result, shape)),
+                        (split(result, f._task.task_id, spans_on),
                          f._task.task_id))
                     if len(d.chunk.entries) == d.chunk.size:
                         wal_log.emit(FOLDED, task_id=f._task.task_id,
@@ -633,10 +654,14 @@ def run_irregular(
                         folds_since += d.chunk.size
                         ready.extend(d.chunk.deferred)
             else:
-                ready.append((list(spec.split(result, shape)),
+                ready.append((split(result, f._task.task_id, spans_on),
                               f._task.task_id))
+            t_dispatch = time.monotonic() if spans_on else 0.0
             for kids, pid in ready:
                 dispatch_ready(kids, shape, parent=pid)
+            if spans_on:
+                telemetry.add_span("master.dispatch", t_dispatch,
+                                   time.monotonic(), f._task.task_id)
             if (checkpoint_every is not None
                     and folds_since >= checkpoint_every
                     and not any(dd.chunk is not None and dd.chunk.entries
@@ -667,7 +692,11 @@ def run_irregular(
                          else time.monotonic()))
             if autoscale is not None:
                 apply_autoscale()
+            if spans_on:
+                telemetry.add_span("master.fold", t_fold, time.monotonic(),
+                                   f._task.task_id)
 
+    t_close = time.monotonic() if telemetry.SPANS_ON else None
     snap = pool.snapshot()
     wall = time.monotonic() - t0
     # sim pools bill/plot in virtual time (elapsed this run); real
@@ -697,7 +726,7 @@ def run_irregular(
         retries = ev_counts.get(REQUEUE, 0)
         worker_deaths = ev_counts.get(WORKER_KILLED, 0)
     dag = getattr(spec, "dag", None)
-    return IrregularResult(
+    out = IrregularResult(
         output=spec.finalize(state),
         wall_time_s=wall,
         tasks=n_dispatched,
@@ -719,6 +748,9 @@ def run_irregular(
         stage_widths=list(dag.stage_widths) if dag is not None else [],
         dag_nodes=dag.executed if dag is not None else 0,
     )
+    if t_close is not None:
+        telemetry.add_span("master.close", t_close, time.monotonic())
+    return out
 
 
 def _steal_half(frontiers: List[deque], thief: int) -> Optional[int]:

@@ -47,13 +47,22 @@ Now there is a single source of truth:
 bounded-memory recording at scale, use the ring-buffer + JSONL-spill
 subclass :class:`repro.trace.store.TraceStore` (every pool accepts it
 via the ``trace=`` constructor keyword).
+
+Beside the timeline, on the same clock, a span recorder for host work
+finer than a task (:class:`Span`; :func:`enable_spans`, :func:`spans`,
+:func:`clear_spans`, :func:`spans_dropped`).  The event log is the
+write-ahead log and the replay input, so spans stay out of its kinds.
+The master loop (``master.*``), the pool's worker (``pool.*``) and the
+UTS kernel's launch path (``uts.*``) record them; off, which is the
+default, each site costs one test of :data:`SPANS_ON`.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from dataclasses import dataclass
-from typing import Iterable, List, Optional, Sequence, Tuple
+from typing import Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 from .futures import TaskRecord
 
@@ -63,6 +72,8 @@ __all__ = [
     "SUBMIT", "COLD_START", "START", "REQUEUE", "COMPLETE",
     "CAPACITY_GROW", "CAPACITY_SHRINK",
     "WORKER_KILLED", "THROTTLED", "CANCEL", "FOLDED", "CHECKPOINT",
+    "Span", "SPAN_CAP", "enable_spans", "spans", "clear_spans",
+    "spans_dropped", "add_span", "current_task", "set_current_task",
 ]
 
 SUBMIT = "submit"
@@ -369,3 +380,87 @@ class EventLog:
 
         return heapq.merge(*(stream(log) for log in logs),
                            key=lambda e: e.t)
+
+
+# -- spans -----------------------------------------------------------------
+
+class Span(NamedTuple):
+    """One stretch of host work.  ``start`` and ``end`` are
+    ``time.monotonic`` seconds, the clock of :class:`WallClock`;
+    ``task_id`` is the pool task the work belongs to (``None`` where none
+    does); ``thread`` is the recording thread's ``threading.get_ident()``,
+    so spans on one thread nest."""
+
+    name: str
+    start: float
+    end: float
+    task_id: Optional[int]
+    thread: int
+
+
+#: spans kept in memory at most; later ones are counted, not kept
+SPAN_CAP = 1 << 20
+
+#: whether the sites record spans (set it with :func:`enable_spans`).
+#: Sites read it as ``telemetry.SPANS_ON``: a name imported from this
+#: module would be a copy that never changes
+SPANS_ON = False
+
+# appended to from every worker thread without a lock: ``list.append``
+# and ``next`` on an ``itertools.count`` are atomic under the GIL, and the
+# ticket decides which spans the cap keeps.  Only a span past the cap
+# takes a lock, to count itself
+_spans: List[Span] = []
+_tickets = itertools.count()
+_dropped = 0
+_dropped_lock = threading.Lock()
+_local = threading.local()
+
+
+def enable_spans(on: bool = True) -> None:
+    """Turn span recording on or off; what was kept stays."""
+    global SPANS_ON
+    SPANS_ON = bool(on)
+
+
+def spans() -> List[Span]:
+    """The spans kept so far, in the order they were recorded."""
+    return list(_spans)
+
+
+def clear_spans() -> None:
+    """Forget the spans kept and the count of those dropped (call it with
+    no run recording)."""
+    global _tickets, _dropped
+    _spans.clear()
+    _tickets = itertools.count()
+    _dropped = 0
+
+
+def spans_dropped() -> int:
+    """Spans recorded past :data:`SPAN_CAP` since the last clear."""
+    return _dropped
+
+
+def add_span(name: str, start: float, end: float,
+             task_id: Optional[int] = None) -> None:
+    """Keep one span of the calling thread (sites call it only while
+    :data:`SPANS_ON` is set)."""
+    global _dropped
+    if next(_tickets) < SPAN_CAP:
+        _spans.append(Span(name, start, end, task_id,
+                           threading.get_ident()))
+    else:
+        with _dropped_lock:
+            _dropped += 1
+
+
+def set_current_task(task_id: Optional[int]) -> None:
+    """The pool task the calling thread runs (the pool sets it around a
+    task body while spans are on), for spans that cannot be told it."""
+    _local.task_id = task_id
+
+
+def current_task() -> Optional[int]:
+    """The task :func:`set_current_task` last gave this thread."""
+    return getattr(_local, "task_id", None)

@@ -21,11 +21,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ...core import telemetry
 from .. import _build
 from ..dispatch import KernelOp, dispatch, record_launch, register_kernel
 from .ref import (_thresholds_on, geometric_children, random_u31,
@@ -180,7 +182,10 @@ def _expand_launch(digests: torch.Tensor, depths: torch.Tensor, iters: int,
     """One cooperative launch of uts_expand_kernel: the bag copied into a
     work buffer of ``capacity`` nodes, the state read back once through
     pinned memory, the leftover copied out to fresh tensors (the pool keeps
-    split views of them, which must not pin a work buffer)."""
+    split views of them, which must not pin a work buffer).  With spans
+    on, the four steps are ``uts.stage_in``, ``uts.launch``, ``uts.wait``
+    and ``uts.leftover``, under the thread's current task."""
+    t_in = time.monotonic() if telemetry.SPANS_ON else None
     dev = depths.device
     size = depths.shape[0]
     work_d = torch.empty((5, capacity), dtype=torch.int32, device=dev)
@@ -190,6 +195,8 @@ def _expand_launch(digests: torch.Tensor, depths: torch.Tensor, iters: int,
     head = torch.empty((2, _HEAD_ROWS, chunk), dtype=torch.int32, device=dev)
     state = torch.empty((4,), dtype=torch.int64, device=dev)
     table = _thresholds_on(float(b0), int(max_children), dev)
+    if t_in is not None:
+        t_launch = time.monotonic()
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
@@ -199,6 +206,8 @@ def _expand_launch(digests: torch.Tensor, depths: torch.Tensor, iters: int,
             head.data_ptr(), state.data_ptr(), stream.cuda_stream)
         _raise_on(err, "uts_expand")
         record_launch("uts_expand")
+        if t_in is not None:
+            t_wait = time.monotonic()
         host = torch.empty((4,), dtype=torch.int64, pin_memory=True)
         host.copy_(state, non_blocking=True)
         stream.synchronize()
@@ -208,7 +217,16 @@ def _expand_launch(digests: torch.Tensor, depths: torch.Tensor, iters: int,
         raise RuntimeError(f"uts_expand: kernel state {host.tolist()}")
     with _GENS_LOCK:
         _GENS[0] += gens
-    return count, work_d[:, :size].clone(), work_p[:size].clone()
+    if t_in is not None:
+        t_left = time.monotonic()
+    left = work_d[:, :size].clone(), work_p[:size].clone()
+    if t_in is not None:
+        task = telemetry.current_task()
+        telemetry.add_span("uts.stage_in", t_in, t_launch, task)
+        telemetry.add_span("uts.launch", t_launch, t_wait, task)
+        telemetry.add_span("uts.wait", t_wait, t_left, task)
+        telemetry.add_span("uts.leftover", t_left, time.monotonic(), task)
+    return (count, *left)
 
 
 def uts_expand_cuda(digests: torch.Tensor, depths: torch.Tensor, iters: int,

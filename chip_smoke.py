@@ -19,12 +19,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    its full-iteration build (the cycle exit off), timed in turns with the
    kernel, and through a plain run of the kernel's cycle-exit schedule,
    which counts the iterations its bound holds these inputs to;
-   ``uts_expand`` (a whole task's traversal in one cooperative launch) on
-   full trees of depths 8, 9 and 10, on a 50,000-node task from a depth-14
-   frontier, and on the same task at a capacity that forces relaunches;
-   then the depth-14 tree alone through the kernel (generations, time per
-   generation), and a bag of 4,194,304 leaves, whose generations hash
-   nothing (the scan and the grid barrier alone);
+   ``uts_expand`` (a whole task's traversal in one launch of one thread
+   block cluster, on the task's own stream) on full trees of depths 8, 9
+   and 10, on a 50,000-node task from a depth-14 frontier, and on the same
+   task at a capacity that forces relaunches; then its launch plan
+   (cluster size, ``cudaOccupancyMaxActiveClusters``), the depth-14 tree
+   alone through the kernel (generations, time per generation), and a bag
+   of 4,194,304 leaves, whose generations hash nothing (the scans and the
+   cluster barrier alone);
 4. UTS main path: ``uts_sequential`` for depths 4..10 against the published
    tree sizes, then the paper's Table 1 first row (seed 19, b0 4, depth 14)
    through ``uts_sequential`` and through ``run_irregular`` on the elastic
@@ -745,12 +747,16 @@ def phase_kernel_uts_expand(dev, sha1: dict) -> dict:
     task (the elastic path's budget) from a depth-14 frontier that the
     plain version has made (10,000 nodes in), at chunk 8192; the same task
     at the least capacity, which must relaunch at least 3 times.  Kernel
-    and plain times of the task and of depth 10; then the depth-14 tree
-    through the kernel alone (time, generations, time per generation),
-    and a bag of leaves, whose generations hash nothing."""
+    and plain times of the task and of depth 10; then the kernel's launch
+    plan (one cluster a task: its blocks, the clusters resident on the
+    card at once), the depth-14 tree through the kernel alone, one task
+    on one cluster with the rest of the card idle (time, generations,
+    time per generation), and a bag of leaves, whose generations hash
+    nothing."""
     import torch
     from repro_torch.kernels import launches
     from repro_torch.kernels.uts_hash.ops import (expand_generations,
+                                                  expand_plan,
                                                   reset_expand_generations,
                                                   root_digest, uts_expand)
     root = (root_digest(19, dev), torch.zeros(1, dtype=torch.int32,
@@ -794,7 +800,15 @@ def phase_kernel_uts_expand(dev, sha1: dict) -> dict:
             f"{c['bound_loose_ms']:.4f} ms; stack traffic "
             f"{c['stack_traffic_ms']:.4f} ms)")
 
-    # the depth-14 tree through the kernel alone
+    plan = expand_plan(8192, dev)
+    log(f"[kernel] uts_expand launch plan at chunk 8192: one cluster of "
+        f"{plan['cluster']} blocks of {plan['threads']} threads a task, "
+        f"{plan['smem_bytes']} B of dynamic shared memory a block, "
+        f"{plan['registers']} registers and {plan['local_bytes']} B of "
+        f"spill a thread; cudaOccupancyMaxActiveClusters "
+        f"{plan['clusters_resident']}")
+    # the depth-14 tree through the kernel alone: one cluster, the rest of
+    # the card idle
     d14 = dict(b0=4.0, max_depth=UTS_DEPTH, chunk=8192)
     before = launches("uts_expand")
     reset_expand_generations()
@@ -810,7 +824,8 @@ def phase_kernel_uts_expand(dev, sha1: dict) -> dict:
             "generations": expand_generations(), "nodes": count,
             **expand_bounds(1, count, 0, sha1)}
     tree["us_per_generation"] = tree["ms"] * 1e3 / tree["generations"]
-    log(f"[kernel] uts_expand depth {UTS_DEPTH} tree alone: {count} nodes in "
+    log(f"[kernel] uts_expand depth {UTS_DEPTH} tree alone (one cluster of "
+        f"{plan['cluster']} SMs): {count} nodes in "
         f"{tree['ms']:.3f} ms, {tree['launches']} launches, "
         f"{tree['generations']} generations, "
         f"{tree['us_per_generation']:.3f} us a generation; bound "
@@ -818,7 +833,7 @@ def phase_kernel_uts_expand(dev, sha1: dict) -> dict:
         f"{tree['bound_loose_ms']:.3f} ms; stack traffic "
         f"{tree['stack_traffic_ms']:.3f} ms)")
     # generations with no child: a bag of leaves (depth = max_depth), so
-    # each generation is the scan and the grid barrier alone
+    # each generation is the scans and the cluster barrier alone
     n_leaf = 8192 * 512
     leaves = (torch.zeros((5, n_leaf), dtype=torch.int32, device=dev),
               torch.full((n_leaf,), UTS_DEPTH, dtype=torch.int32, device=dev))
@@ -834,8 +849,8 @@ def phase_kernel_uts_expand(dev, sha1: dict) -> dict:
     leaf["us_per_generation"] = leaf["ms"] * 1e3 / leaf["generations"]
     log(f"[kernel] uts_expand on {n_leaf} leaves: {leaf['generations']} "
         f"generations without a child in {leaf['ms']:.3f} ms, "
-        f"{leaf['us_per_generation']:.3f} us a generation (scan and grid "
-        f"barrier; the bag's copy in and one launch included)")
+        f"{leaf['us_per_generation']:.3f} us a generation (scans and "
+        f"cluster barrier; the bag's copy in and one launch included)")
     head = cases["task"]
     return {"name": "uts_expand", "max_abs_err": 0, "matched": True,
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -843,7 +858,8 @@ def phase_kernel_uts_expand(dev, sha1: dict) -> dict:
             "bound_loose_ms": head["bound_loose_ms"], "library_ms": None,
             "shape": f"a {fdep.shape[0]}-node depth-{UTS_DEPTH} frontier, "
                      f"budget 50,000, chunk 8192",
-            "cases": cases, "depth14_tree": tree, "leaf_generations": leaf}
+            "cases": cases, "plan": plan, "depth14_tree": tree,
+            "leaf_generations": leaf}
 
 
 def cycle_exit_run(c_re, c_im, max_iter: int, every: int) -> tuple:

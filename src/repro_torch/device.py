@@ -36,9 +36,17 @@ def task_stream(device: torch.device) -> ContextManager[Optional[torch.cuda.Stre
     (a Mariani-Silver border strip is a few warps) would queue behind one
     another on the shared current stream; a stream per task lets them
     overlap on the card, the way concurrent serverless invocations
-    overlap.  Only for task bodies whose tensors do not outlive the task
-    on the device: the body must copy its results to the host before the
-    scope ends.
+    overlap.  The stream is one of PyTorch's pool streams, which do not
+    wait for the legacy default stream, nor it for them.
+
+    A body must hand back only finished tensors, since its caller and
+    other tasks read them from other streams: either it copies its
+    results to the host before the scope ends, or it synchronises the
+    stream before the scope ends and its device results stay on the
+    device (a UTS leftover bag).  Such a body records its caller's stream
+    on those results (``Tensor.record_stream``), so that the caching
+    allocator does not hand their memory out again while work queued
+    there may still read them.
     """
     if device.type != "cuda":
         return contextlib.nullcontext()

@@ -28,50 +28,64 @@
 // -- uts_expand_kernel -------------------------------------------------------
 //
 // The whole `expand_bag` loop of one task (the plain version is
-// `uts_expand_ref` in kernels/uts_hash/ref.py), bit for bit, in one
-// cooperative launch.  A work buffer holds the LIFO stack, digests
-// [5, cap] and depths [cap], with the bag at [0, S).  Each generation:
+// `uts_expand_ref` in kernels/uts_hash/ref.py), bit for bit, in one launch
+// of one thread block cluster.  A work buffer in device memory holds the
+// LIFO stack, digests [5, cap] and depths [cap], with the bag at [0, S).
+// Each generation:
 //   take = min(S, iters - count, chunk) head nodes [cut, S), cut = S - take;
 //   their child counts (the threshold table: count = #{t : u31 < t}, 0 at
 //   max_depth); an exclusive scan of the counts -> offsets and total;
 //   if cut + total > cap, stop with this generation undone (the host grows
 //   the buffer and relaunches; the result cannot tell);
-//   child j of parent p = the last p with off[p] <= j, index k = j - off[p],
-//   written at cut + j: parent-major, child index minor;
+//   child k of head node p is child j = off[p] + k, written at cut + j:
+//   parent-major, child index minor;
 //   count += take, S = cut + total.
 //
 // Design:
-// * The grid stays resident (one block of 1024 threads per SM) and walks
-//   the generations with one grid barrier (`cooperative_groups`) each.
-// * The head of the current generation is staged in a scratch `head`
-//   buffer [7, chunk] (5 digest words, depth, child count), two of them in
-//   turn.  The children overwrite the parents' slots of the stack, so the
-//   parents are read from the head buffer only; the threads that write a
-//   child that falls in the next generation's head, and the threads that
-//   copy the older nodes below `cut` that fall in it, fill the other head
-//   buffer in the same pass.  So reading every parent before any child is
-//   written costs no barrier of its own.
-// * A node's child count is computed once, by the thread that puts it in a
-//   head buffer, and stored there.
-// * Every block computes the scan of the take counts redundantly into its
-//   own shared memory (chunk * 4 bytes, 32 KB at the main path's chunk of
-//   8192), so all blocks know total, the next S and the next head without
-//   a second barrier, and each finds its children's parents by a binary
-//   search in shared memory.  The threshold table sits in shared memory too.
-// * Blocks take contiguous ranges of the children, so a generation of some
-//   32,000 children spreads over every SM and each warp's writes coalesce.
+// * One task, one cluster: a launch is kCluster blocks of 1024 threads, one
+//   an SM, so it takes kCluster SMs and not the card.  The pool's tasks,
+//   each launched on its worker's own stream, run side by side.  A
+//   generation ends at the cluster's barrier.
+// * The head lives in the cluster's shared memory, never in device memory.
+//   Its nodes are dealt to the blocks in groups of 32 (group q to block
+//   q % kCluster), and a block keeps its slots' digest words, depth and
+//   child count, in two buffers in turn.  Small groups dealt in turn keep
+//   the blocks' children even: summed over a depth-11 tree's generations,
+//   the busiest block's children come to 1.15 times the mean, where
+//   contiguous slices of the head gave 1.98.
+// * A block hashes the children of its own head nodes, so every parent is
+//   read from the block's own shared memory, found by a binary search over
+//   the block's exclusive offsets.  A child's index in the generation comes
+//   from its group's base, an exclusive scan of every group's total (some
+//   256 values at chunk 8192) that one warp of each block makes.  Every
+//   block keeps every group's total, summed before the generation starts
+//   by whoever writes a head node: one shared-memory atomic a warp, group
+//   and block, through the cluster's distributed shared memory.  So a
+//   generation reads nothing of another block, and has one block barrier
+//   and one cluster barrier.  Two buffers of totals in turn: a block clears
+//   the one it has read while the others add into the other.
+// * The threads that write a child that falls in the next generation's
+//   head also write it, with its child count, into its slot's block's other
+//   head buffer; each block copies into its own slots the older stack
+//   nodes that the next head reaches below the children.  The stack in
+//   device memory is written once a child, and read (`ld.cg`, past L1) only
+//   for the bag and for those older nodes.
 //
-// What bounds it on the H100: the serial chain of generations (a depth-14
-// tree of 117,669,204 nodes is 14,373 generations of at most 8,192
-// parents, each a scan, a hash pass and a grid barrier), far above the 48
-// bytes a node of memory traffic (24 B written as a child, 24 B read as a
-// parent) and SHA-1's integer instructions over the whole tree.  Within a
-// generation the fixed part sets the time: on an H100 at 700 W a
-// generation of leaves, which hashes nothing, takes 5.8 us, one of 8,192
-// parents and their some 32,000 children 5.9 us.
+// What bounds it on the H100: a generation of the main path (8,192 parents,
+// some 8,192 children on average) hashes its children on the cluster's
+// INT32 pipes, 64 lanes an SM, 577 INT32 instructions a child: some 4,600
+// cycles at kCluster = 16, 2.3 us at 1.98 GHz; the rest is the fixed part
+// (the totals' scan, the busiest block's tail, the cluster barrier).  On an
+// H100 at 700 W the depth-14 tree alone takes 89.3 ms, 6.2 us a generation
+// (the whole-card cooperative kernel this replaced: 85.4 ms, 5.9 us), and a
+// generation of leaves, which hashes nothing, 3.6-4.0 us.  kCluster is 16
+// (a non-portable size; 7 clusters fit on the card at once): with clusters
+// of 8 (15 fit) the lone tree took 126 ms, 8.8 us a generation, while the
+// elastic pool's UTS ran as fast with either.
 
 #include <cooperative_groups.h>
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -86,12 +100,18 @@ constexpr uint32_t kH4 = 0xC3D2E1F0u;
 
 constexpr int kThreads = 128;
 
-// uts_expand: block size, blocks per SM, largest threshold table
+// uts_expand: blocks a cluster (one task), threads a block, largest
+// threshold table, head nodes a group (a warp's)
+constexpr int kCluster = 16;
 constexpr int kExpandThreads = 1024;
-constexpr int kExpandBlocksPerSm = 1;
 constexpr int kMaxTable = 256;
-// head buffer rows: digest words 0..4, depth, child count
+constexpr int kGroup = 32;
+// head rows: digest words 0..4, depth, child count
 constexpr int kHeadRows = 7;
+// buffers of group totals, in turn
+constexpr int kTotals = 2;
+// devices whose launch set-up is kept
+constexpr int kMaxDevices = 64;
 // state words written at the end of a launch
 enum { kCount = 0, kSize = 1, kGenerations = 2, kStatus = 3 };
 enum { kDone = 0, kCapacity = 1 };
@@ -183,68 +203,6 @@ __device__ __forceinline__ int child_count(uint32_t w0, int depth,
   return n_table - lo;
 }
 
-__device__ __forceinline__ void put_head(uint32_t* head, int chunk, int i,
-                                         const uint32_t dig[5], int depth,
-                                         int count) {
-#pragma unroll
-  for (int w = 0; w < 5; ++w) head[w * chunk + i] = dig[w];
-  head[5 * chunk + i] = static_cast<uint32_t>(depth);
-  head[6 * chunk + i] = static_cast<uint32_t>(count);
-}
-
-// Exclusive scan of cnt[0..n) into s_off (shared), by this block alone;
-// returns the sum.  Each warp scans a contiguous segment 32 values at a
-// time (shuffles, a running carry), then every value gets its warp's base.
-// s_warp holds 33 ints.
-__device__ int block_exclusive_scan(const uint32_t* cnt, int n, int* s_off,
-                                    int* s_warp) {
-  constexpr int kUnroll = 4;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int seg = ((n + nwarps - 1) / nwarps + 31) & ~31;
-  const int lo = warp * seg, hi = min(n, lo + seg);
-  int carry = 0;
-  for (int base = lo; base < hi; base += 32 * kUnroll) {
-    int c[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = base + 32 * u + lane;
-      c[u] = i < hi ? static_cast<int>(cnt[i]) : 0;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      int x = c[u];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, x, o);
-        if (lane >= o) x += y;
-      }
-      const int i = base + 32 * u + lane;
-      if (i < hi) s_off[i] = carry + x - c[u];
-      carry += __shfl_sync(0xffffffffu, x, 31);
-    }
-  }
-  if (lane == 0) s_warp[warp] = carry;
-  __syncthreads();
-  if (warp == 0) {
-    const int v = lane < nwarps ? s_warp[lane] : 0;
-    int x = v;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane < nwarps) s_warp[lane] = x - v;
-    if (lane == 31) s_warp[32] = x;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    s_off[i] += s_warp[i / seg];
-  const int total = s_warp[32];
-  __syncthreads();
-  return total;
-}
-
 // Nodes the generation after (count, S) takes: 0 when the budget is spent
 // or the stack is empty.
 __device__ __forceinline__ long long take_of(long long s, long long count,
@@ -253,101 +211,312 @@ __device__ __forceinline__ long long take_of(long long s, long long count,
   return min(min(s, iters - count), static_cast<long long>(chunk));
 }
 
-// dig [5, cap] and dep [cap] hold the bag at [0, s); head0 and head1 are
-// [7, chunk] scratch; state receives count, S, generations and status.
-// Launched cooperatively with kExpandThreads threads a block and chunk * 4
-// bytes of dynamic shared memory.
-__global__ void __launch_bounds__(kExpandThreads)
+// A block's shared memory at `chunk`: the groups of the largest head, the
+// groups a block owns, its head slots.
+struct Layout {
+  int groups, own, slots;
+  __host__ __device__ explicit Layout(int chunk)
+      : groups((chunk + kGroup - 1) / kGroup),
+        own((groups + kCluster - 1) / kCluster),
+        slots(own * kGroup) {}
+  // 32-bit words: two heads [kHeadRows, slots], offsets [slots], every
+  // group's base [groups], every group's total [kTotals, groups]
+  __host__ __device__ size_t words() const {
+    return static_cast<size_t>(2 * kHeadRows + 1) * slots +
+           static_cast<size_t>(1 + kTotals) * groups;
+  }
+};
+
+// Head index i lives in block (i / 32) % kCluster, at slot
+// (i / 32 / kCluster) * 32 + i % 32; own group r of block b is group
+// r * kCluster + b.
+__device__ __forceinline__ int owner_of(int i) {
+  return (i / kGroup) % kCluster;
+}
+__device__ __forceinline__ int slot_of(int i) {
+  return (i / kGroup / kCluster) * kGroup + i % kGroup;
+}
+
+__device__ __forceinline__ void put_head(uint32_t* head, int slots, int at,
+                                         const uint32_t dig[5], int depth,
+                                         int count) {
+#pragma unroll
+  for (int w = 0; w < 5; ++w) head[w * slots + at] = dig[w];
+  head[5 * slots + at] = static_cast<uint32_t>(depth);
+  head[6 * slots + at] = static_cast<uint32_t>(count);
+}
+
+// Adds `sum` to group q's total in every block's copy (`totals` is this
+// block's); lanes 0..kCluster-1 of a warp each send one, the others none.
+__device__ __forceinline__ void add_total(cg::cluster_group& cluster,
+                                          int* totals, int q, int sum) {
+  const int lane = threadIdx.x & 31;
+  if (sum && lane < kCluster)
+    atomicAdd(cluster.map_shared_rank(totals + q, lane), sum);
+}
+
+// This block's slots of head indices [0, n), from the stack at [base,
+// base + n): digest, depth and child count into `head`, the counts added
+// to the groups' totals in `totals`.  One warp a group.
+__device__ void head_from_stack(cg::cluster_group& cluster,
+                                const uint32_t* dig, const int* dep,
+                                long long cap, long long base, int n,
+                                uint32_t* head, int* totals, const Layout& L,
+                                int rank, const int* table, int n_table,
+                                int max_depth) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < L.own; r += blockDim.x >> 5) {
+    const int q = r * kCluster + rank;
+    const int i = q * kGroup + lane;
+    int c = 0;
+    if (i < n) {
+      const long long pos = base + i;
+      uint32_t d[5];
+#pragma unroll
+      for (int w = 0; w < 5; ++w) d[w] = __ldcg(dig + w * cap + pos);
+      const int depth = __ldcg(dep + pos);
+      c = child_count(d[0], depth, table, n_table, max_depth);
+      put_head(head, L.slots, r * kGroup + lane, d, depth, c);
+    }
+    add_total(cluster, totals, q, __reduce_add_sync(0xffffffffu, c));
+  }
+}
+
+// dig [5, cap] and dep [cap] hold the bag at [0, s); state receives count,
+// S, generations and status.  Launched as one cluster of kCluster blocks of
+// kExpandThreads threads, with Layout(chunk).words() * 4 bytes of dynamic
+// shared memory.
+__global__ void __launch_bounds__(kExpandThreads, 1)
 uts_expand_kernel(uint32_t* dig, int* dep, long long cap, long long s,
                   long long iters, int chunk, int max_depth,
                   const int* __restrict__ table, int n_table,
-                  uint32_t* head0, uint32_t* head1, long long* state) {
-  extern __shared__ int s_off[];
+                  long long* state) {
+  extern __shared__ uint32_t smem[];
   __shared__ int s_table[kMaxTable];
-  __shared__ int s_warp[33];
-  cg::grid_group grid = cg::this_grid();
-  const int tid = threadIdx.x;
-  const long long gid = static_cast<long long>(blockIdx.x) * blockDim.x + tid;
-  const long long gthreads = static_cast<long long>(gridDim.x) * blockDim.x;
+  __shared__ int s_total;
+  constexpr unsigned kAll = 0xffffffffu;
+  cg::cluster_group cluster = cg::this_cluster();
+  const Layout L(chunk);
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  uint32_t* heads = smem;                                    // [2][7][slots]
+  int* off = reinterpret_cast<int*>(smem + 2 * kHeadRows * L.slots);
+  int* gbase = off + L.slots;                                // [groups]
+  int* totals = gbase + L.groups;                            // [2][groups]
   for (int i = tid; i < n_table; i += blockDim.x) s_table[i] = table[i];
-  __syncthreads();
+  for (int i = tid; i < kTotals * L.groups; i += blockDim.x) totals[i] = 0;
+  cluster.sync();  // every block has started, its totals cleared
 
   // the first generation's head, from the stack
   long long count = 0, gens = 0;
-  int status = kDone;
+  int status = kDone, cur = 0;
   long long take = take_of(s, count, iters, chunk);
-  for (long long pos = s - take + gid; pos < s; pos += gthreads) {
-    uint32_t d[5];
-#pragma unroll
-    for (int w = 0; w < 5; ++w) d[w] = dig[w * cap + pos];
-    const int depth = dep[pos];
-    put_head(head0, chunk, static_cast<int>(pos - (s - take)), d, depth,
-             child_count(d[0], depth, s_table, n_table, max_depth));
-  }
-  grid.sync();
+  head_from_stack(cluster, dig, dep, cap, s - take, static_cast<int>(take),
+                  heads, totals, L, rank, s_table, n_table, max_depth);
+  cluster.sync();
 
-  uint32_t* cur = head0;
-  uint32_t* nxt = head1;
   while (take > 0) {
     const long long cut = s - take;
     const int n = static_cast<int>(take);
-    const int total = block_exclusive_scan(cur + 6 * chunk, n, s_off, s_warp);
+    const int ng = (n + kGroup - 1) / kGroup;
+    const uint32_t* head = heads + cur * kHeadRows * L.slots;
+    uint32_t* next = heads + (cur ^ 1) * kHeadRows * L.slots;
+    int* tot = totals + cur * L.groups;
+    int* tot_next = totals + (cur ^ 1) * L.groups;
+    // warp 0: the groups' bases, an exclusive scan of their totals, a
+    // contiguous run of them a lane
+    if (warp == 0) {
+      const int per = (ng + 31) / 32;
+      const int lo = min(ng, lane * per), hi = min(ng, lo + per);
+      int sum = 0;
+      for (int q = lo; q < hi; ++q) sum += tot[q];
+      int x = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kAll, x, o);
+        if (lane >= o) x += y;
+      }
+      for (int q = lo, b = x - sum; q < hi; ++q) {
+        gbase[q] = b;
+        b += tot[q];
+      }
+      if (lane == 31) s_total = x;
+    }
+    // this block's offsets: its slots in order (its groups in order), an
+    // exclusive scan of their child counts; mine = its children
+    int mine = 0;
+    for (int r0 = 0; r0 < L.own; r0 += 32) {
+      const int q = (r0 + lane) * kCluster + rank;
+      mine += __reduce_add_sync(kAll, r0 + lane < L.own && q < ng ? tot[q]
+                                                                  : 0);
+    }
+    for (int r = warp; r < L.own; r += nwarps) {
+      int below = 0;  // children of this block's groups before r
+      for (int r0 = 0; r0 < r; r0 += 32) {
+        const int q = (r0 + lane) * kCluster + rank;
+        below += __reduce_add_sync(kAll, r0 + lane < r && q < ng ? tot[q]
+                                                                 : 0);
+      }
+      const int i = (r * kCluster + rank) * kGroup + lane;
+      const int c =
+          i < n ? static_cast<int>(head[6 * L.slots + r * kGroup + lane]) : 0;
+      int x = c;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kAll, x, o);
+        if (lane >= o) x += y;
+      }
+      off[r * kGroup + lane] = below + x - c;
+    }
+    __syncthreads();
+    const int total = s_total;
     if (cut + total > cap) {
       status = kCapacity;
       break;
     }
+    // read by this block alone: cleared for the generation after next
+    for (int q = tid; q < ng; q += blockDim.x) tot[q] = 0;
     const long long count_n = count + take, s_n = cut + total;
     const long long take_n = take_of(s_n, count_n, iters, chunk);
     const long long cut_n = s_n - take_n;
 
-    // children, a contiguous range per block
-    const int per_block = (total + gridDim.x - 1) / gridDim.x;
-    const int j0 = blockIdx.x * per_block;
-    const int j1 = min(total, j0 + per_block);
-    for (int j = j0 + tid; j < j1; j += blockDim.x) {
-      int lo = 0, hi = n;  // the last p with s_off[p] <= j
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (s_off[mid] <= j) lo = mid + 1; else hi = mid;
+    // the children of this block's head nodes, a warp's 32 at a time
+    for (int t0 = warp * 32; t0 < mine; t0 += blockDim.x) {
+      const int t = t0 + lane;
+      int q_next = 0, c_next = 0;
+      if (t < mine) {
+        int lo = 0, hi = L.slots;  // the last slot with off <= t
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (off[mid] <= t) lo = mid + 1; else hi = mid;
+        }
+        const int p = lo - 1;
+        const int r = p / kGroup;
+        const int j = t - off[r * kGroup] + gbase[r * kCluster + rank];
+        uint32_t par[5], c[5];
+#pragma unroll
+        for (int w = 0; w < 5; ++w) par[w] = head[w * L.slots + p];
+        const int depth = static_cast<int>(head[5 * L.slots + p]) + 1;
+        sha1_child(par, static_cast<uint32_t>(t - off[p]), c);
+        const long long pos = cut + j;
+#pragma unroll
+        for (int w = 0; w < 5; ++w) dig[w * cap + pos] = c[w];
+        dep[pos] = depth;
+        if (pos >= cut_n) {
+          const int i = static_cast<int>(pos - cut_n);
+          c_next = child_count(c[0], depth, s_table, n_table, max_depth);
+          put_head(cluster.map_shared_rank(next, owner_of(i)), L.slots,
+                   slot_of(i), c, depth, c_next);
+          q_next = i / kGroup;
+        }
       }
-      const int p = lo - 1;
-      uint32_t par[5], c[5];
-#pragma unroll
-      for (int w = 0; w < 5; ++w) par[w] = cur[w * chunk + p];
-      const int depth = static_cast<int>(cur[5 * chunk + p]) + 1;
-      sha1_child(par, static_cast<uint32_t>(j - s_off[p]), c);
-      const long long pos = cut + j;
-#pragma unroll
-      for (int w = 0; w < 5; ++w) dig[w * cap + pos] = c[w];
-      dep[pos] = depth;
-      if (pos >= cut_n)
-        put_head(nxt, chunk, static_cast<int>(pos - cut_n), c, depth,
-                 child_count(c[0], depth, s_table, n_table, max_depth));
+      // the counts into their groups' totals: a warp's sum a group, sent
+      // to every block
+      unsigned todo = __ballot_sync(kAll, c_next > 0);
+      while (todo) {
+        const int q = __shfl_sync(kAll, q_next, __ffs(todo) - 1);
+        const bool here = c_next > 0 && q_next == q;
+        add_total(cluster, tot_next, q,
+                  __reduce_add_sync(kAll, here ? c_next : 0));
+        todo &= ~__ballot_sync(kAll, here);
+      }
     }
-    // older nodes below cut that the next head reaches
-    for (long long pos = cut_n + gid; pos < cut; pos += gthreads) {
-      uint32_t d[5];
-#pragma unroll
-      for (int w = 0; w < 5; ++w) d[w] = dig[w * cap + pos];
-      const int depth = dep[pos];
-      put_head(nxt, chunk, static_cast<int>(pos - cut_n), d, depth,
-               child_count(d[0], depth, s_table, n_table, max_depth));
-    }
+    // the older nodes below cut that the next head reaches
+    if (cut_n < cut)
+      head_from_stack(cluster, dig, dep, cap, cut_n,
+                      static_cast<int>(cut - cut_n), next, tot_next, L, rank,
+                      s_table, n_table, max_depth);
     count = count_n;
     s = s_n;
     take = take_n;
     ++gens;
-    uint32_t* t = cur;
-    cur = nxt;
-    nxt = t;
-    grid.sync();
+    cur ^= 1;
+    cluster.sync();
   }
-  if (blockIdx.x == 0 && tid == 0) {
+  cluster.sync();  // no block leaves while another may write its memory
+  if (rank == 0 && tid == 0) {
     state[kCount] = count;
     state[kSize] = s;
     state[kGenerations] = gens;
     state[kStatus] = status;
   }
+}
+
+cudaLaunchConfig_t expand_config(cudaLaunchAttribute& attr, size_t smem,
+                                 cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kExpandThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// What a device allows the kernel, found once a process and device: the
+// dynamic shared bytes a block may take (the kernel is allowed them all),
+// and the clusters resident at once.
+struct Setup {
+  cudaError_t err;
+  int smem_max;
+  int clusters;
+};
+
+std::mutex g_setup_lock;
+Setup g_setup[kMaxDevices];
+bool g_setup_done[kMaxDevices];
+
+const Setup& expand_setup(int device) {
+  std::lock_guard<std::mutex> hold(g_setup_lock);
+  Setup& st = g_setup[device];
+  if (g_setup_done[device]) return st;
+  g_setup_done[device] = true;
+  st = Setup{cudaSuccess, 0, 0};
+  int optin = 0;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, uts_expand_kernel);
+  if (err == cudaSuccess) {
+    st.smem_max = optin - static_cast<int>(fa.sharedSizeBytes);
+    err = cudaFuncSetAttribute(uts_expand_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               st.smem_max);
+  }
+  if (err == cudaSuccess && kCluster > 8)
+    err = cudaFuncSetAttribute(uts_expand_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  if (err == cudaSuccess) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = expand_config(attr, st.smem_max, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&st.clusters, uts_expand_kernel,
+                                         &cfg);
+  }
+  if (err == cudaSuccess && st.clusters < 1) err = cudaErrorLaunchOutOfResources;
+  st.err = err;
+  return st;
+}
+
+// The current device's set-up, and the dynamic shared bytes at `chunk`;
+// cudaErrorInvalidValue for a chunk the kernel does not take.
+cudaError_t expand_smem(int chunk, size_t* smem) {
+  if (chunk <= 0 || chunk > (1 << 24)) return cudaErrorInvalidValue;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidValue;
+  const Setup& st = expand_setup(device);
+  if (st.err != cudaSuccess) return st.err;
+  *smem = Layout(chunk).words() * sizeof(uint32_t);
+  if (*smem > static_cast<size_t>(st.smem_max)) return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -364,56 +533,54 @@ extern "C" int uts_hash_launch(const void* parent, const void* child_ix,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One cooperative launch of uts_expand_kernel on `stream`, one block per SM
-// of the current device.  dig: [5, cap] int32, dep: [cap] int32 (the bag at
-// [0, s)); table: [n_table] int32 ascending (n_table <= 256); head: [2, 7,
-// chunk] int32 scratch; state: [4] int64 out.  Returns a cudaError_t: the
-// launch's own, or cudaErrorInvalidValue for arguments the kernel does not
-// take, or cudaErrorCooperativeLaunchTooLarge if a block does not fit on an
-// SM.  Nothing else is tried.
+// One launch of uts_expand_kernel on `stream`: one cluster of kCluster
+// blocks.  dig: [5, cap] int32, dep: [cap] int32 (the bag at [0, s));
+// table: [n_table] int32 ascending (n_table <= 256); state: [4] int64 out.
+// Returns a cudaError_t: the launch's own, cudaErrorInvalidValue for
+// arguments the kernel does not take (a chunk whose head does not fit in
+// the cluster's shared memory), or cudaErrorLaunchOutOfResources if no
+// cluster fits on the card.  Nothing else is tried.
 extern "C" int uts_expand_launch(void* dig, void* dep, long long cap,
                                  long long s, long long iters, int chunk,
                                  int max_depth, const void* table,
-                                 int n_table, void* head, void* state,
-                                 void* stream) {
-  if (s <= 0 || s > cap || iters <= 0 || chunk <= 0 || n_table < 0 ||
-      n_table > kMaxTable)
+                                 int n_table, void* state, void* stream) {
+  if (s <= 0 || s > cap || iters <= 0 || n_table < 0 || n_table > kMaxTable)
     return static_cast<int>(cudaErrorInvalidValue);
-  int device = 0, sms = 0, per_sm = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_max,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                 device);
+  size_t smem = 0;
+  cudaError_t err = expand_smem(chunk, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(chunk) * sizeof(int);
-  if (smem + sizeof(int) * (kMaxTable + 33) > static_cast<size_t>(smem_max))
-    return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(uts_expand_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, uts_expand_kernel, kExpandThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < kExpandBlocksPerSm)
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  uint32_t* dig_p = static_cast<uint32_t*>(dig);
-  int* dep_p = static_cast<int*>(dep);
-  const int* table_p = static_cast<const int*>(table);
-  uint32_t* head0 = static_cast<uint32_t*>(head);
-  uint32_t* head1 = head0 + static_cast<size_t>(kHeadRows) * chunk;
-  long long* state_p = static_cast<long long*>(state);
-  void* args[] = {&dig_p, &dep_p, &cap, &s, &iters, &chunk, &max_depth,
-                  &table_p, &n_table, &head0, &head1, &state_p};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(uts_expand_kernel),
-      dim3(sms * kExpandBlocksPerSm), dim3(kExpandThreads), args, smem,
-      static_cast<cudaStream_t>(stream));
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      expand_config(attr, smem, static_cast<cudaStream_t>(stream));
+  err = cudaLaunchKernelEx(&cfg, uts_expand_kernel, static_cast<uint32_t*>(dig),
+                           static_cast<int*>(dep), cap, s, iters, chunk,
+                           max_depth, static_cast<const int*>(table), n_table,
+                           static_cast<long long*>(state));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch uts_expand_launch makes at `chunk`, into out[7]: blocks a
+// cluster, threads a block, dynamic shared bytes a block, clusters resident
+// on the card at once, registers a thread, local (spill) bytes a thread,
+// static shared bytes a block.  Returns a cudaError_t (0: filled).
+extern "C" int uts_expand_plan(int chunk, int* out) {
+  size_t smem = 0;
+  cudaError_t err = expand_smem(chunk, &smem);
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, uts_expand_kernel);
+  int clusters = 0;
+  if (err == cudaSuccess) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = expand_config(attr, smem, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&clusters, uts_expand_kernel, &cfg);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vals[] = {kCluster, kExpandThreads, static_cast<int>(smem),
+                      clusters, fa.numRegs, static_cast<int>(fa.localSizeBytes),
+                      static_cast<int>(fa.sharedSizeBytes)};
+  for (int x = 0; x < 7; ++x) out[x] = vals[x];
+  return 0;
 }
 
 extern "C" int uts_expand_max_table() { return kMaxTable; }

@@ -7,11 +7,13 @@ the port's dispatch registry, both backed by ``csrc/uts_hash.cu``:
   (parent, child index) pairs; the reference body is the plain PyTorch
   SHA-1 of ``ref.py``.  The UTS path uses it for the root digest.
 * ``uts_expand`` (``uts_expand``): a whole task's traversal, every
-  generation of it, in one cooperative launch that keeps the LIFO stack
-  on the card; the host reads two integers per launch.  Its reference
-  body is ``uts_expand_ref``.  The kernel stops when its work buffer is
-  full; :func:`expand_relaunching` grows the buffer and launches again,
-  the same loop over either body.
+  generation of it, in one launch of one thread block cluster that keeps
+  the LIFO stack on the card, on a stream of the task's own
+  (``device.task_stream``), so concurrent tasks share the card; the host
+  reads two integers per launch.  Its reference body is
+  ``uts_expand_ref``.  The kernel stops when its work buffer is full;
+  :func:`expand_relaunching` grows the buffer and launches again, the
+  same loop over either body.
 
 ``root_digest``, ``random_u31`` and ``geometric_children`` give the tree
 shape.
@@ -22,12 +24,13 @@ import ctypes
 import functools
 import threading
 import time
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ...core import telemetry
+from ...device import task_stream
 from .. import _build
 from ..dispatch import KernelOp, dispatch, record_launch, register_kernel
 from .ref import (_thresholds_on, geometric_children, random_u31,
@@ -36,19 +39,37 @@ from .ref import (_thresholds_on, geometric_children, random_u31,
 __all__ = [
     "uts_child_digests", "uts_child_digests_ref", "uts_hash_cuda",
     "uts_expand", "uts_expand_ref", "uts_expand_cuda", "expand_relaunching",
-    "expand_generations", "reset_expand_generations",
+    "expand_generations", "reset_expand_generations", "Overlap",
+    "expand_overlap", "reset_expand_overlap", "expand_plan",
     "root_digest", "random_u31", "geometric_children",
 ]
 
 #: uts_expand's status codes (``csrc/uts_hash.cu``): ran out, buffer full
 _DONE, _CAPACITY = 0, 1
-#: head buffer rows: digest words 0..4, depth, child count
-_HEAD_ROWS = 7
 
 # generations run by uts_expand's kernel; pool workers launch
 # concurrently, so the read-modify-write holds a lock
 _GENS = [0]
 _GENS_LOCK = threading.Lock()
+
+
+class Overlap(NamedTuple):
+    """``uts_expand`` launches since the last reset, each seen at its
+    launch against the others of the process in flight (launched, their
+    stream not yet synchronised)."""
+
+    launches: int
+    #: launches that found at least one other in flight
+    overlapped: int
+    #: the others in flight, summed over the launches
+    others: int
+    #: most launches in flight at once, the launching one included
+    peak: int
+
+
+# launches in flight now, and the Overlap counts; under _GENS_LOCK
+_IN_FLIGHT = [0]
+_OVERLAP = [0, 0, 0, 0]
 
 
 @functools.cache
@@ -63,8 +84,10 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.uts_expand_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.uts_expand_plan.restype = ctypes.c_int
     lib.uts_expand_max_table.argtypes = []
     lib.uts_expand_max_table.restype = ctypes.c_int
     lib.uts_hash_error_string.argtypes = [ctypes.c_int]
@@ -175,51 +198,83 @@ def expand_relaunching(step: Callable[..., tuple], digests: torch.Tensor,
         cap = max(2 * cap, size)
 
 
+def _launch_began() -> None:
+    """Count a launch against the others in flight; it is in flight now."""
+    with _GENS_LOCK:
+        others = _IN_FLIGHT[0]
+        _IN_FLIGHT[0] += 1
+        _OVERLAP[0] += 1
+        _OVERLAP[1] += others > 0
+        _OVERLAP[2] += others
+        _OVERLAP[3] = max(_OVERLAP[3], others + 1)
+
+
+def _launch_ended() -> None:
+    """A launch's stream is synchronised (or its launch failed)."""
+    with _GENS_LOCK:
+        _IN_FLIGHT[0] -= 1
+
+
 def _expand_launch(digests: torch.Tensor, depths: torch.Tensor, iters: int,
                    *, b0: float, max_depth: int, chunk: int,
                    max_children: int, capacity: int
                    ) -> Tuple[int, torch.Tensor, torch.Tensor]:
-    """One cooperative launch of uts_expand_kernel: the bag copied into a
-    work buffer of ``capacity`` nodes, the state read back once through
-    pinned memory, the leftover copied out to fresh tensors (the pool keeps
-    split views of them, which must not pin a work buffer).  With spans
-    on, the four steps are ``uts.stage_in``, ``uts.launch``, ``uts.wait``
-    and ``uts.leftover``, under the thread's current task."""
+    """One launch of uts_expand_kernel on a stream of the task's own
+    (``task_stream``): the bag copied into a work buffer of ``capacity``
+    nodes, the state read back once through pinned memory, the leftover
+    copied out to fresh tensors (the pool keeps split views of them,
+    which must not pin a work buffer).  The work buffer comes from the
+    caller's stream's memory, so that the allocator keeps one cache of
+    them and not one on each of the pool's streams; the task's stream
+    waits for the caller's (which may still use that memory, or be making
+    the bag) and is synchronised before the leftover is returned, so it is
+    whole on every stream; the caller's stream is recorded on the
+    leftover for the allocator.  With spans on, the four steps are
+    ``uts.stage_in``, ``uts.launch``, ``uts.wait`` and ``uts.leftover``,
+    under the thread's current task."""
     t_in = time.monotonic() if telemetry.SPANS_ON else None
     dev = depths.device
     size = depths.shape[0]
+    table = _thresholds_on(float(b0), int(max_children), dev)
+    caller = torch.cuda.current_stream(dev)
     work_d = torch.empty((5, capacity), dtype=torch.int32, device=dev)
     work_p = torch.empty((capacity,), dtype=torch.int32, device=dev)
-    work_d[:, :size].copy_(digests)
-    work_p[:size].copy_(depths)
-    head = torch.empty((2, _HEAD_ROWS, chunk), dtype=torch.int32, device=dev)
     state = torch.empty((4,), dtype=torch.int64, device=dev)
-    table = _thresholds_on(float(b0), int(max_children), dev)
-    if t_in is not None:
-        t_launch = time.monotonic()
     lib = _lib()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), task_stream(dev):
         stream = torch.cuda.current_stream(dev)
-        err = lib.uts_expand_launch(
-            work_d.data_ptr(), work_p.data_ptr(), capacity, size, iters,
-            chunk, max_depth, table.data_ptr(), table.shape[0],
-            head.data_ptr(), state.data_ptr(), stream.cuda_stream)
-        _raise_on(err, "uts_expand")
-        record_launch("uts_expand")
+        stream.wait_stream(caller)
+        work_d[:, :size].copy_(digests)
+        work_p[:size].copy_(depths)
         if t_in is not None:
-            t_wait = time.monotonic()
-        host = torch.empty((4,), dtype=torch.int64, pin_memory=True)
-        host.copy_(state, non_blocking=True)
+            t_launch = time.monotonic()
+        _launch_began()
+        try:
+            err = lib.uts_expand_launch(
+                work_d.data_ptr(), work_p.data_ptr(), capacity, size, iters,
+                chunk, max_depth, table.data_ptr(), table.shape[0],
+                state.data_ptr(), stream.cuda_stream)
+            _raise_on(err, "uts_expand")
+            record_launch("uts_expand")
+            if t_in is not None:
+                t_wait = time.monotonic()
+            host = torch.empty((4,), dtype=torch.int64, pin_memory=True)
+            host.copy_(state, non_blocking=True)
+            stream.synchronize()
+        finally:
+            _launch_ended()
+        # the state words: count, S, generations, status
+        count, size, gens, status = (int(v) for v in host.tolist())
+        if status not in (_DONE, _CAPACITY):
+            raise RuntimeError(f"uts_expand: kernel state {host.tolist()}")
+        with _GENS_LOCK:
+            _GENS[0] += gens
+        if t_in is not None:
+            t_left = time.monotonic()
+        left = work_d[:, :size].clone(), work_p[:size].clone()
         stream.synchronize()
-    # the state words: count, S, generations, status
-    count, size, gens, status = (int(v) for v in host.tolist())
-    if status not in (_DONE, _CAPACITY):
-        raise RuntimeError(f"uts_expand: kernel state {host.tolist()}")
-    with _GENS_LOCK:
-        _GENS[0] += gens
-    if t_in is not None:
-        t_left = time.monotonic()
-    left = work_d[:, :size].clone(), work_p[:size].clone()
+    for t in left:
+        t.record_stream(caller)
     if t_in is not None:
         task = telemetry.current_task()
         telemetry.add_span("uts.stage_in", t_in, t_launch, task)
@@ -305,3 +360,32 @@ def expand_generations() -> int:
 def reset_expand_generations() -> None:
     with _GENS_LOCK:
         _GENS[0] = 0
+
+
+def expand_overlap() -> Overlap:
+    """``uts_expand`` kernel launches since the last reset, and how many
+    others of the process each found in flight (for measurement)."""
+    with _GENS_LOCK:
+        return Overlap(*_OVERLAP)
+
+
+def reset_expand_overlap() -> None:
+    """Zero the counts of :func:`expand_overlap`; launches in flight stay
+    counted as such."""
+    with _GENS_LOCK:
+        _OVERLAP[:] = [0, 0, 0, 0]
+
+
+def expand_plan(chunk: int, device: Optional[torch.device] = None) -> dict:
+    """The launch ``uts_expand``'s kernel makes at ``chunk`` on a CUDA
+    device: blocks a cluster, threads a block, dynamic shared bytes a
+    block, clusters resident on the card at once
+    (``cudaOccupancyMaxActiveClusters``), registers and local (spill)
+    bytes a thread, static shared bytes a block."""
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(device if device is not None else 0):
+        _raise_on(_lib().uts_expand_plan(int(chunk), ctypes.addressof(out)),
+                  "uts_expand plan")
+    keys = ("cluster", "threads", "smem_bytes", "clusters_resident",
+            "registers", "local_bytes", "static_smem_bytes")
+    return dict(zip(keys, out))
